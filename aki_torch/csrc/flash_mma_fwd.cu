@@ -16,6 +16,15 @@
 // P is rounded to bf16 before the PV product (as the TPU kernel does), the
 // row sum is kept in f32, and a row with no allowed key writes 0.
 //
+// Optional output for the backward (csrc/flash_mma_bwd.cu): the row
+// logsumexp lse (B, H, T) f32, written when its pointer is non-null, IN BASE
+// 2 of the scaled scores: lse = m + log2(l) with m the running max of
+// scale*log2(e)*q.k and l the f32 row sum, so that the backward's
+// p = exp2(scale*log2(e)*q.k - lse). A row with no allowed key stores
+// +inf, which makes every p of that row 0. This carries the function of the
+// TPU's separate stats pass (flash_mma_bwd.py:68 _lse_kernel) at no extra
+// pass over K: the forward already holds m and l in registers.
+//
 // Work split: one block of 4 warps per (query tile of 64 rows, head, batch
 // row); each warp owns 16 query rows. The block walks KV tiles of 64 keys
 // with an online softmax (running max, running sum, f32 accumulator in
@@ -90,6 +99,7 @@ flash_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse,            // (B, H, T) or null
                      const int* __restrict__ kv_valid,   // (B, S) or null
                      const int* __restrict__ q_offset,   // (B,)
                      const int* __restrict__ img_start,  // (B, n_img)
@@ -295,11 +305,15 @@ flash_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * q_stride + d) =
             __floats2bfloat162_rn(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
     }
+    // the four threads of a quad hold the same row stats
+    if (lse != nullptr && t4 == 0)
+      lse[((size_t)b * H + h) * T + row] =
+          l_run[r] > 0.f ? m_run[r] + log2f(l_run[r]) : INFINITY;
   }
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const void* kv_valid, const void* q_offset, const void* img_start,
            const void* txt_start, const void* txt_end, int n_img, int B, int T,
            int S, int H, int Hkv, int D, int causal, float scale_log2,
@@ -314,7 +328,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   flash_mma_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<const int*>(kv_valid), static_cast<const int*>(q_offset),
+      static_cast<float*>(lse), static_cast<const int*>(kv_valid),
+      static_cast<const int*>(q_offset),
       static_cast<const int*>(img_start), static_cast<const int*>(txt_start),
       static_cast<const int*>(txt_end), n_img, T, S, H, Hkv, D, causal, scale_log2);
   return (int)cudaGetLastError();
@@ -329,8 +344,9 @@ extern "C" const char* flash_mma_error_string(int code) {
 // q (B,T,H,D), k/v (B,S,Hkv,D), o (B,T,H,D): contiguous bf16, D % 8 == 0,
 // D in 72..96 (padded to 80 or 96: SigLIP's 72, Phi-3's 96), H % Hkv == 0. kv_valid (B,S) int32 or null; q_offset (B,) int32;
 // img_start/txt_start/txt_end (B,n_img) int32, n_img <= kMaxImages.
+// lse (B,H,T) f32 or null (inference passes null).
 extern "C" int flash_mma_fwd(const void* q, const void* k, const void* v, void* o,
-                             const void* kv_valid, const void* q_offset,
+                             void* lse, const void* kv_valid, const void* q_offset,
                              const void* img_start, const void* txt_start,
                              const void* txt_end, int n_img, int B, int T, int S,
                              int H, int Hkv, int D, int causal, float scale_log2,
@@ -342,7 +358,7 @@ extern "C" int flash_mma_fwd(const void* q, const void* k, const void* v, void* 
   switch ((D + 15) / 16 * 16) {
 #define AKI_CASE(DP)                                                             \
   case DP:                                                                       \
-    return launch<DP>(q, k, v, o, kv_valid, q_offset, img_start, txt_start,      \
+    return launch<DP>(q, k, v, o, lse, kv_valid, q_offset, img_start, txt_start, \
                       txt_end, n_img, B, T, S, H, Hkv, D, causal, scale_log2, st);
     AKI_CASE(80) AKI_CASE(96)
 #undef AKI_CASE

@@ -85,12 +85,14 @@ class AKIOutput:
 
 
 def encode_vision(model: AKIModel, images: torch.Tensor, policy: Policy = BF16,
-                  use_flash: bool = True) -> torch.Tensor:
+                  use_flash: bool = True, remat: bool = False,
+                  remat_policy: str = "full") -> torch.Tensor:
     """Pixels (B, H, W, C) -> vision tokens (B, n_vis, D_lm). The frozen
-    tower runs without gradients; the perceiver stays differentiable."""
+    tower runs without gradients (the counterpart of ``stop_gradient``); the
+    perceiver stays differentiable, recomputed per block under ``remat``."""
     with torch.no_grad():
         feats = model.vision_encoder(images, policy, use_flash)
-    return model.vision_tokenizer(feats, policy)
+    return model.vision_tokenizer(feats, policy, remat, remat_policy)
 
 
 def embed_text(model: AKIModel, ids: torch.Tensor, policy: Policy = BF16) -> torch.Tensor:
@@ -131,26 +133,32 @@ def aki_forward(
     order: str = "image_first",
     vision_tokens: torch.Tensor | None = None,
     device="cuda",
+    remat: bool = False,
+    remat_policy: str = "full",
 ) -> AKIOutput:
     """Training/eval forward over the whole spliced sequence.
 
     input_ids (B, T_txt) with one ``<image>`` per row; images (B, H, W, C)
     (or None with ``vision_tokens``); attn_valid (B, T_txt) right-padded 0/1;
     labels optional (B, T_txt) with -100 on prompt/pad; order
-    ``"image_first"`` (MMA) or ``"text_first"`` (DOT ablation).
+    ``"image_first"`` (MMA) or ``"text_first"`` (DOT ablation); remat
+    recomputes each Perceiver block and decoder layer in the backward
+    (``remat_policy`` as in :data:`~aki_torch.models.common.REMAT_POLICIES`).
     """
     device = resolve_device(device)
     to = lambda x: None if x is None else torch.as_tensor(x, device=device)  # noqa: E731
     input_ids, attn_valid, labels = to(input_ids), to(attn_valid), to(labels)
     cfg = model.cfg
     if vision_tokens is None:
-        vision_tokens = encode_vision(model, to(images), policy, use_flash)
+        vision_tokens = encode_vision(model, to(images), policy, use_flash, remat,
+                                      remat_policy)
     sp = splice_vision_tokens(embed_text(model, input_ids, policy), vision_tokens,
                               input_ids, attn_valid, cfg.media_token_id,
                               cfg.assistant_token_id, labels=labels, order=order)
     hidden, _ = model.lang_model.model(sp.embeds, sp.positions, spec=sp.spec,
                                        kv_valid=sp.attn_valid, policy=policy,
-                                       use_flash=use_flash)
+                                       use_flash=use_flash, remat=remat,
+                                       remat_policy=remat_policy)
     logits = lm_logits(model, hidden, policy)
     loss = next_token_loss(logits, sp.labels) if labels is not None else None
     return AKIOutput(logits=logits, loss=loss, spliced=sp)

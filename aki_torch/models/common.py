@@ -9,6 +9,14 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+# Per-layer recompute policies (counterpart of ``aki_tpu/models/phi3.py
+# _remat_policy``, passed as an argument rather than read from the
+# environment): "full" saves each layer's inputs only and recomputes the
+# whole layer in the backward. The JAX "dots" / "dots_nowide" selective
+# policies compute the same numbers and are not ported yet.
+REMAT_POLICIES = ("full",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +45,17 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("aki_torch: no CUDA device; pass device='cpu' to "
                            "run on the CPU")
     return device
+
+
+def remat_call(remat: bool, policy: str, fn, *args):
+    """``fn(*args)``; with ``remat`` and autograd recording, under
+    ``torch.utils.checkpoint`` (non-reentrant), so that the backward
+    recomputes ``fn`` instead of keeping its activations."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} is not one of {REMAT_POLICIES}")
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def layernorm(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,

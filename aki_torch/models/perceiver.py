@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import (BF16, Policy, empty, init_const, init_norm, init_normal,
-                     layernorm, linear)
+                     layernorm, linear, remat_call)
 from .configs import PerceiverConfig
 
 
@@ -85,15 +85,22 @@ class PerceiverResampler(nn.Module):
         init_normal(gen, 0.02, self.projection.weight)
         init_const(0.0, self.projection.bias)
 
-    def forward(self, features: torch.Tensor, policy: Policy = BF16) -> torch.Tensor:
-        cfg, cast = self.cfg, policy.cast
+    def _block(self, attn, ff, x, latents, policy: Policy) -> torch.Tensor:
+        cast = policy.cast
+        latents = latents + attn(x, latents, self.cfg, policy)
+        f = layernorm(cast(ff[0].weight), cast(ff[0].bias), latents)
+        f = linear(ff[1], f, policy)
+        f = F.gelu(f.float()).to(f.dtype)
+        return latents + linear(ff[3], f, policy)
+
+    def forward(self, features: torch.Tensor, policy: Policy = BF16,
+                remat: bool = False, remat_policy: str = "full") -> torch.Tensor:
+        """``remat`` recomputes each block in the backward (as the decoder)."""
+        cast = policy.cast
         x = features.to(policy.compute_dtype)
         latents = cast(self.latents).expand(x.shape[0], -1, -1)
         for attn, ff in self.layers:
-            latents = latents + attn(x, latents, cfg, policy)
-            f = layernorm(cast(ff[0].weight), cast(ff[0].bias), latents)
-            f = linear(ff[1], f, policy)
-            f = F.gelu(f.float()).to(f.dtype)
-            latents = latents + linear(ff[3], f, policy)
+            latents = remat_call(remat, remat_policy, self._block, attn, ff, x, latents,
+                                 policy)
         latents = layernorm(cast(self.norm.weight), cast(self.norm.bias), latents)
         return linear(self.projection, latents, policy)

@@ -24,7 +24,7 @@ from ..ops.attention import dense_attention
 from ..ops.flash_mma import flash_mma_attention
 from ..ops.masks import MMASpec
 from ..ops.rope import apply_rope, rope_cos_sin
-from .common import BF16, Policy, empty, linear, rmsnorm
+from .common import BF16, Policy, empty, linear, remat_call, rmsnorm
 from .configs import Phi3Config
 
 
@@ -132,6 +132,8 @@ class Phi3Model(nn.Module):
         cache_index: torch.Tensor | None = None,
         policy: Policy = BF16,
         use_flash: bool = True,
+        remat: bool = False,
+        remat_policy: str = "full",
     ) -> tuple[torch.Tensor, KVCache | None]:
         """Run the stack over ``inputs_embeds`` (B, T, D).
 
@@ -150,7 +152,8 @@ class Phi3Model(nn.Module):
         if cache is not None:
             t = x.shape[1]
             wpos = cache_index.to(torch.int64)[:, None] + torch.arange(t, device=x.device)
+        remat = remat and cache is None
         for li, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, cfg, spec, kv_valid, q_offset, cache, li,
-                      wpos, policy, use_flash)
+            x = remat_call(remat, remat_policy, layer, x, cos, sin, cfg, spec, kv_valid,
+                           q_offset, cache, li, wpos, policy, use_flash)
         return rmsnorm(policy.cast(self.norm.weight), x, cfg.rms_norm_eps), cache

@@ -9,6 +9,7 @@ module builds nothing and needs neither ``nvcc`` nor a card.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -61,6 +62,14 @@ def build(name: str) -> float:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
     os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def build_all(names) -> dict[str, float]:
+    """:func:`build` of every name at once, one ``nvcc`` each, all started
+    together; returns the seconds each took."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

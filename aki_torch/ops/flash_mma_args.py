@@ -1,0 +1,66 @@
+"""The argument contract of the flash MMA CUDA kernels, shared by the
+forward (:mod:`aki_torch.ops.flash_mma`) and the backward
+(:mod:`aki_torch.ops.flash_mma_bwd`): input checks and the marshalling of
+the mask arguments into the int32 tensors the kernels read."""
+
+from __future__ import annotations
+
+import torch
+
+LOG2E = 1.4426950408889634
+MAX_IMAGES = 16                 # kMaxImages of the kernels
+HEAD_DIMS = (72, 80, 88, 96)    # padded to the kernels' two widths, 80 and 96
+
+
+def int32_rows(x, shape, device) -> torch.Tensor:
+    """A scalar or a broadcastable int tensor as contiguous int32 ``shape``."""
+    if isinstance(x, int):
+        return torch.full(shape, x, dtype=torch.int32, device=device)
+    return torch.as_tensor(x, device=device).to(torch.int32).expand(shape).contiguous()
+
+
+def kernel_mask_args(spec, kv_valid, q_offset, b, s, device):
+    """The kernels' mask arguments: (kv_valid int32 or None, q_offset int32,
+    (img_start, txt_start, txt_end) int32 (B, n_img) or Nones, n_img)."""
+    valid = None if kv_valid is None else int32_rows(kv_valid, (b, s), device)
+    offset = int32_rows(q_offset, (b,), device)
+    if spec is None:
+        return valid, offset, (None, None, None), 0
+    spec = spec.with_batch_dim()
+    n_img = spec.img_start.shape[1]
+    if n_img > MAX_IMAGES:
+        raise ValueError(f"flash_mma: at most {MAX_IMAGES} images, got {n_img}")
+    coords = tuple(int32_rows(c, (b, n_img), device)
+                   for c in (spec.img_start, spec.txt_start, spec.txt_end))
+    return valid, offset, coords, n_img
+
+
+def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *more: tuple[str, torch.Tensor]) -> None:
+    """Raise on anything the kernels do not take: q (B,T,H,D), k and v
+    (B,S,Hkv,D), all bf16, contiguous and 16-byte aligned on one CUDA
+    device, D in ``HEAD_DIMS``; ``more`` are further (name, tensor) of q's
+    shape."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: q (B,T,H,D) and k, v (B,S,Hkv,D) expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
+        raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernel takes head dims {HEAD_DIMS}, got {d}")
+    if b == 0 or t == 0 or s == 0:
+        raise ValueError(f"{name}: empty batch, query or key sequence")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    for n, x in (("q", q), ("k", k), ("v", v), *more):
+        if x.device != q.device:
+            raise ValueError(f"{name}: {n} on {x.device}, q on {q.device}")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernel takes bf16, {n} is {x.dtype}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} must be contiguous and 16-byte aligned")
+    for n, x in more:
+        if x.shape != q.shape:
+            raise ValueError(f"{name}: {n} shape {tuple(x.shape)}, q {tuple(q.shape)}")

@@ -18,13 +18,29 @@ Phases, each fatal on failure:
      ~60 text tokens with max_len 1024, and ~900 with max_len 1280);
      every count is zeroed just before each request and read just after;
   5. prefill in place: last-position logits with the kernel against the
-     plain attention on the same model and request.
+     plain attention on the same model and request;
+  6. the frozen tower's forward at the training batch (2 x 729 patches),
+     then the forward kernel's output and lse and the backward kernels (dq,
+     dkv) against the plain versions in bf16, at the training shape (2 x
+     655 tokens: 512 text tokens, one <image> spliced to 144 vision tokens,
+     the second row right-padded), the SigLIP non-causal shape and edge
+     cases, with times beside the bound, the plain backward and SDPA's
+     backward;
+  7. whole-model gradients: aki_4b() at full width and depth (fp32 master
+     weights, bf16 compute, remat) on one training batch, loss and
+     gradients with the kernels against the plain attention, both against
+     f32 compute, with the launches of that one step;
+  8. the Trainer at full aki_4b() width: bf16 frozen tower, remat,
+     grad_accum 2, four AdamW steps on the same two micro-batches; loss,
+     grad_norm, step ms, tokens/s, peak memory and launches per step.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,6 +72,27 @@ F32_ERR_RATIO = 1.5
 # ~0.998 apart. Hence 0.995 between kernel and plain, the same argmax, and
 # the kernel no further from the f32 run than twice the plain path's gap.
 COSINE_MIN = 0.995
+# Backward, kernel against plain on the same bf16 inputs, o and lse: both
+# round p and ds to bf16 and the outputs to bf16, and differ only in the f32
+# summation order (which can flip one bf16 rounding of a p or ds term) and
+# exp2's last bit. Element-wise |kernel - plain| <= G_ATOL * max|plain| +
+# G_RTOL * |plain|: the max-scaled term covers outputs that are small
+# sums of large terms. The sharper gate is the f32 one (F32_ERR_RATIO).
+G_ATOL, G_RTOL = 2e-2, 2e-2
+# The forward's lse against the plain logsumexp of the same bf16 inputs, in
+# base 2 (f32 sums of ~700 terms in another order): 1e-3 absolute.
+LSE_ATOL = 1e-3
+# Whole-model loss, kernel against plain attention, bf16 compute: two bf16
+# paths that round in different places (see COSINE_MIN) through 32 layers.
+LOSS_RTOL = 1e-2
+# Per-tensor gradient cosine, kernel against plain: the same two bf16 paths
+# through 32 layers forward and back (0.9955-0.9989 on an H100). The
+# sharper gate: against the same weights with f32 compute and plain
+# attention, the kernel's 1 - cosine is at most twice the plain path's.
+GRAD_COSINE_MIN = 0.99
+TRAIN_STEPS = 4
+KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd")
+TRAIN_TEXT = 512          # text tokens per training row; one <image> -> 144
 
 
 def log(*args):
@@ -87,12 +124,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_call(name: str, fn, reps: int = 3) -> None:
+def profile_call(name: str, fn, reps: int = 3, host: bool = False) -> None:
     """The device's idle share of ``fn``: each of ``reps`` calls gives its
     own host wall time and the device time of what it ran (torch.profiler
     tracing the device only, one stream: device events do not overlap);
     the call with the median idle share is printed with its five costliest
-    kernels, beside every call's idle share."""
+    kernels, beside every call's idle share. ``host`` adds one more call
+    traced on the host as well, and prints its costliest host operations by
+    self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,12 +156,21 @@ def profile_call(name: str, fn, reps: int = 3) -> None:
         return
     runs.sort(key=lambda r: r[0])
     idle, wall_ms, busy_ms, per_name = runs[len(runs) // 2]
-    attn_ms = sum(v for k, v in per_name.items() if "flash_mma_fwd" in k)
+    if host:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        top_host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+        log(f"profile {name} host: " + "; ".join(
+            f"{e.key[:50]}={e.self_cpu_time_total / 1e3:.1f}ms x{e.count}" for e in top_host))
+    kern = {n: sum(v for k, v in per_name.items() if n in k)
+            for n in ("flash_mma_fwd", "flash_mma_dq", "flash_mma_dkv")}
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"profile {name}: median of {reps} calls: wall_ms={wall_ms:.3f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={idle:.3f} "
-        f"(all calls {[round(r[0], 3) for r in runs]}) flash_mma_fwd_ms={attn_ms:.3f} top="
-        + "; ".join(f"{k[:60]}={v:.3f}" for k, v in top))
+        f"(all calls {[round(r[0], 3) for r in runs]}) "
+        + " ".join(f"{n}_ms={v:.3f}" for n, v in kern.items() if v or n == "flash_mma_fwd")
+        + " top=" + "; ".join(f"{k[:60]}={v:.3f}" for k, v in top))
 
 
 def prompt_ids(cfg, n_txt: int, gen: torch.Generator) -> torch.Tensor:
@@ -161,6 +209,39 @@ def prefix_valid(lens, s) -> torch.Tensor:
     return (torch.arange(s, device="cuda")[None] < lens).to(torch.int32)
 
 
+def forward_gates(label, got, q, k, v, kw, exact=None, zero_rows=None) -> dict:
+    """Hold the forward kernel's output ``got`` against the plain forward on
+    the same bf16 inputs, element-wise, and against attention in f32 on
+    those inputs (``exact``, computed when not given): the kernel's mean
+    |error| stays within F32_ERR_RATIO of the plain version's.
+    ``zero_rows`` = (batch row, query rows) that must come out exactly 0.
+    Fails the script on a miss; returns the errors."""
+    from aki_torch.ops.flash_mma import flash_mma_attention_reference
+
+    want = flash_mma_attention_reference(q, k, v, **kw)
+    diff = (got.float() - want.float()).abs()
+    abs_err = diff.max().item()
+    rel_err = abs_err / max(want.float().abs().max().item(), 1e-30)
+    if exact is None:
+        exact = flash_mma_attention_reference(q.float(), k.float(), v.float(), **kw)
+    kernel_vs_f32 = (got.float() - exact).abs().mean().item()
+    plain_vs_f32 = (want.float() - exact).abs().mean().item()
+    ok = (bool(torch.isfinite(got).all())
+          and bool((diff <= ATOL + RTOL * want.float().abs()).all())
+          and kernel_vs_f32 <= F32_ERR_RATIO * plain_vs_f32 + 1e-7)
+    if zero_rows is not None:
+        ok = ok and bool((got[zero_rows[0], zero_rows[1]] == 0).all())
+    log(f"{label}: q={tuple(q.shape)} k={tuple(k.shape)} causal={kw['causal']} "
+        f"max_abs_err={abs_err:.6g} max_rel_err={rel_err:.6g} "
+        f"tol=|d|<={ATOL}+{RTOL}*|plain|; mean |err| vs f32 attention: kernel "
+        f"{kernel_vs_f32:.4g} plain {plain_vs_f32:.4g} (kernel <= {F32_ERR_RATIO}x plain) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {label} disagrees with the plain forward")
+    return dict(max_abs_err=abs_err, max_rel_err=rel_err, mean_abs_err_vs_f32=kernel_vs_f32,
+                plain_mean_abs_err_vs_f32=plain_vs_f32)
+
+
 def kernel_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None,
                 kv_valid=None, q_offset=0, timed=False, zero_rows=None):
     """One kernel-vs-plain comparison on the card; returns its record.
@@ -181,30 +262,8 @@ def kernel_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None,
 
     got = flash_mma_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    want = flash_mma_attention_reference(q, k, v, **kw)
-    diff = (got.float() - want.float()).abs()
-    abs_err = diff.max().item()
-    rel_err = abs_err / max(want.float().abs().max().item(), 1e-30)
-    # both against the same attention in f32 on the same bf16 inputs: the
-    # kernel should be as close to it as the plain version is
-    exact = flash_mma_attention_reference(q.float(), k.float(), v.float(), **kw)
-    kernel_vs_f32 = (got.float() - exact).abs().mean().item()
-    plain_vs_f32 = (want.float() - exact).abs().mean().item()
-    ok = (bool(torch.isfinite(got).all())
-          and bool((diff <= ATOL + RTOL * want.float().abs()).all())
-          and kernel_vs_f32 <= F32_ERR_RATIO * plain_vs_f32 + 1e-7)
-    if zero_rows is not None:
-        ok = ok and bool((got[zero_rows[0], zero_rows[1]] == 0).all())
     rec = dict(name=name, shape=[b, t, s, h, hkv, d], causal=causal,
-               max_abs_err=abs_err, max_rel_err=rel_err,
-               mean_abs_err_vs_f32=kernel_vs_f32, plain_mean_abs_err_vs_f32=plain_vs_f32)
-    log(f"kernel {name}: q={tuple(q.shape)} k={tuple(k.shape)} causal={causal} "
-        f"max_abs_err={abs_err:.6g} max_rel_err={rel_err:.6g} "
-        f"tol=|d|<={ATOL}+{RTOL}*|plain|; mean |err| vs f32 attention: kernel "
-        f"{kernel_vs_f32:.4g} plain {plain_vs_f32:.4g} (kernel <= {F32_ERR_RATIO}x plain) "
-        f"{'ok' if ok else 'FAILED'}")
-    if not ok:
-        raise SystemExit(f"chip_smoke: kernel case {name} disagrees with the plain version")
+               **forward_gates(f"kernel {name}", got, q, k, v, kw, zero_rows=zero_rows))
 
     if timed:
         allowed = None
@@ -234,6 +293,348 @@ def kernel_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None,
     return rec
 
 
+def train_rows(cfg, gen: torch.Generator):
+    """One training micro-batch of two rows, as a loader gives it (numpy):
+    <s> <|user|> <image> question <|end|> <|assistant|> answer <|end|>, 512
+    text tokens, labels on the answer only; row 1 right-padded after 400
+    tokens. Images in [-1, 1] at 384x384."""
+    import numpy as np
+
+    from aki_torch.train.step import Batch
+
+    n_q = 200
+    rows, labels = [], []
+    for _ in range(2):
+        q = torch.randint(100, 32000, (n_q,), generator=gen)
+        a = torch.randint(100, 32000, (TRAIN_TEXT - n_q - 6,), generator=gen)
+        ids = torch.cat([torch.tensor([1, 32010, cfg.media_token_id]), q,
+                         torch.tensor([32007, cfg.assistant_token_id]), a, torch.tensor([32007])])
+        lab = ids.clone()
+        lab[: n_q + 5] = -100
+        rows.append(ids)
+        labels.append(lab)
+    ids, labels = torch.stack(rows), torch.stack(labels)
+    valid = torch.ones_like(ids, dtype=torch.int32)
+    valid[1, 400:] = 0
+    ids[1, 400:] = cfg.pad_token_id
+    labels[1, 400:] = -100
+    s = cfg.siglip.image_size
+    images = torch.rand(2, s, s, 3, generator=gen) * 2 - 1
+    return Batch(ids.numpy(), images.numpy(), valid.numpy(), labels.numpy().astype(np.int64))
+
+
+def train_spec(cfg, batch):
+    """The spliced length, MMA spec and key validity of a training batch,
+    from the port's own splice (on the CPU, zero embeddings)."""
+    from aki_torch.models.fusion import splice_vision_tokens
+
+    ids = torch.as_tensor(batch.input_ids)
+    d = 8
+    sp = splice_vision_tokens(torch.zeros(*ids.shape, d),
+                              torch.zeros(ids.shape[0], cfg.perceiver.num_latents, d), ids,
+                              torch.as_tensor(batch.attn_valid), cfg.media_token_id,
+                              cfg.assistant_token_id)
+    return sp.embeds.shape[1], sp.spec, sp.attn_valid
+
+
+def backward_work(b, t, s, h, hkv, d, allowed):
+    """(FLOPs, bytes) of the attention backward: 10*d FLOPs per head and
+    allowed (query, key) pair (the five products S, dP, dV, dQ, dK; the
+    recompute of S is one of them, nothing else is counted); q, o, dO read
+    and dq written once (bf16), lse read once (f32), dk and dv written
+    once, K and V (and kv_valid) read for the keys some row may attend.
+    Returned for (dq kernel, dkv kernel, both): dq does S, dP, dQ (6d) and
+    reads q, dO, lse, K, V and writes dq; dkv does S, dP, dV, dK (8d) and
+    reads q, dO, lse, K, V and writes dk, dv."""
+    pairs, keys = int(allowed.sum()), int(allowed.any(dim=1).sum())
+    qb = 2 * b * t * h * d            # one (B,T,H,D) bf16 tensor
+    kvb = 2 * b * s * hkv * d         # one (B,S,Hkv,D) bf16 tensor
+    kv_read = keys * (2 * 2 * hkv * d + 4)
+    lse_b = 4 * b * h * t
+    both = (10 * d * h * pairs, 4 * qb + lse_b + kv_read + 2 * kvb)
+    dq = (6 * d * h * pairs, 3 * qb + lse_b + kv_read)
+    dkv = (8 * d * h * pairs, 2 * qb + lse_b + kv_read + 2 * kvb)
+    return dq, dkv, both
+
+
+def bound(work):
+    t_flops, t_bytes = work[0] / PEAK_BF16_FLOPS * 1e3, work[1] / PEAK_HBM_BYTES * 1e3
+    return max(t_flops, t_bytes), ("operations" if t_flops >= t_bytes else "bytes")
+
+
+def kernel_split_ms(fn, reps: int = 10) -> dict[str, float]:
+    """Device ms per call of each kernel ``fn`` launches, by name, from
+    torch.profiler over ``reps`` calls (empty if the profiler saw no device
+    events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=None,
+                  kv_valid=None, q_offset=0, timed=False, zero_rows=None):
+    """The forward kernel's lse and the dq/dkv kernels against the plain
+    versions on the card, in bf16; returns the case's record. ``zero_rows``
+    = (batch row, query rows) whose dq must come out exactly 0."""
+    from aki_torch.ops.flash_mma import flash_mma_attention_reference, flash_mma_forward
+    from aki_torch.ops.flash_mma_bwd import (flash_mma_backward_reference,
+                                             flash_mma_lse_reference, run_backward)
+    from aki_torch.ops.attention import attention_mask
+    from aki_torch.ops.masks import MMASpec
+
+    dev = "cuda"
+    q = torch.randn(b, t, h, d, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(torch.bfloat16)
+    do = torch.randn(b, t, h, d, device=dev, generator=gen).to(torch.bfloat16)
+    if rects is not None:
+        spec = MMASpec(*(torch.tensor([[r[i] for r in rects]] * b, dtype=torch.int32,
+                                      device=dev) for i in range(3)))
+    kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
+
+    out, lse = flash_mma_forward(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    # the forward's output feeds delta = rowsum(dO * out) of both backwards
+    # below, so a wrong out would pass their comparison: hold it first
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o32 = flash_mma_attention_reference(q32, k32, v32, **kw)
+    fwd = forward_gates(f"backward {name} forward with lse", out, q, k, v, kw, exact=o32)
+    got = run_backward(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    want = flash_mma_backward_reference(q, k, v, out, do, lse, **kw)
+    lse_want = flash_mma_lse_reference(q, k, **kw)
+    finite = torch.isfinite(lse_want)
+    lse_ok = bool((torch.isfinite(lse) == finite).all()) and (
+        not finite.any() or (lse - lse_want)[finite].abs().max().item() <= LSE_ATOL)
+    lse_err = (lse - lse_want)[finite].abs().max().item() if finite.any() else 0.0
+    # the same backward in f32 on the same bf16 inputs, from its own f32
+    # forward: the kernel should be as close to it as the plain version is
+    exact = flash_mma_backward_reference(q32, k32, v32, o32, do32,
+                                         flash_mma_lse_reference(q32, k32, **kw), **kw)
+    rec = dict(name=name, shape=[b, t, s, h, hkv, d], causal=causal, lse_max_abs_err=lse_err,
+               fwd_max_abs_err=fwd["max_abs_err"])
+    ok = lse_ok
+    for gname, g, w, x in zip(("dq", "dk", "dv"), got, want, exact):
+        diff = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        k_err = (g.float() - x).abs().mean().item()
+        p_err = (w.float() - x).abs().mean().item()
+        g_ok = (bool(torch.isfinite(g).all())
+                and bool((diff <= G_ATOL * scale + G_RTOL * w.float().abs()).all())
+                and k_err <= F32_ERR_RATIO * p_err + 1e-7)
+        rec[gname] = dict(max_abs_err=diff.max().item(), max_abs=scale,
+                          mean_abs_err_vs_f32=k_err, plain_mean_abs_err_vs_f32=p_err)
+        ok = ok and g_ok
+    if zero_rows is not None:
+        ok = ok and bool((got[0][zero_rows[0], zero_rows[1]] == 0).all())
+    rec["max_abs_err"] = max(rec[n]["max_abs_err"] for n in ("dq", "dk", "dv"))
+    log(f"backward {name}: q={tuple(q.shape)} k={tuple(k.shape)} causal={causal} "
+        f"lse_max_abs_err={lse_err:.3g} (tol {LSE_ATOL}) "
+        + " ".join(f"{n}: max_abs_err={rec[n]['max_abs_err']:.4g} of max {rec[n]['max_abs']:.4g}, "
+                   f"mean |err| vs f32 kernel {rec[n]['mean_abs_err_vs_f32']:.4g} "
+                   f"plain {rec[n]['plain_mean_abs_err_vs_f32']:.4g};" for n in ("dq", "dk", "dv"))
+        + f" tol=|d|<={G_ATOL}*max+{G_RTOL}*|plain|, kernel <= {F32_ERR_RATIO}x plain vs f32 "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: backward case {name} disagrees with the plain version")
+
+    if timed:
+        allowed = attention_mask(b, t, s, dev, spec if causal else None, kv_valid, q_offset,
+                                 causal)[:, 0]
+        w_dq, w_dkv, w_both = backward_work(b, t, s, h, hkv, d, allowed)
+        # the library yardstick: SDPA's backward with the same boolean mask,
+        # through autograd (its forward runs once, outside the timing)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        kr, vr = kt, vt
+        if hkv != h:
+            kr = kt.repeat_interleave(h // hkv, 1)
+            vr = vt.repeat_interleave(h // hkv, 1)
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kr, vr, attn_mask=allowed[:, None])
+        do_t = do.transpose(1, 2)
+        split = kernel_split_ms(lambda: run_backward(q, k, v, out, do, lse, **kw))
+        # the forward with lse at the same shape: its own bound (the lse
+        # written once on top of the forward's bytes), plain and SDPA times
+        f_flops, f_bytes = allowed_work(b, t, s, h, hkv, d, allowed, kv_valid is not None)
+        rec["fwd_lse_bound_ms"], rec["fwd_lse_bound_by"] = bound((f_flops,
+                                                                 f_bytes + 4 * b * h * t))
+        with torch.no_grad():
+            rec["fwd_plain_ms"] = cuda_ms(lambda: flash_mma_attention_reference(q, k, v, **kw))
+            rec["fwd_library_ms"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kr, vr, attn_mask=allowed[:, None]))
+        rec.update(
+            ms=cuda_ms(lambda: run_backward(q, k, v, out, do, lse, **kw)),
+            fwd_lse_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, with_lse=True, **kw)),
+            plain_ms=cuda_ms(lambda: flash_mma_backward_reference(q, k, v, out, do, lse, **kw)),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                                           retain_graph=True)),
+            dq_ms=next((v_ for k_, v_ in split.items() if "flash_mma_dq" in k_), None),
+            dkv_ms=next((v_ for k_, v_ in split.items() if "flash_mma_dkv" in k_), None),
+            bound_flops=w_both[0], bound_bytes=w_both[1],
+        )
+        rec["bound_ms"], rec["bound_by"] = bound(w_both)
+        rec["dq_bound_ms"], rec["dq_bound_by"] = bound(w_dq)
+        rec["dkv_bound_ms"], rec["dkv_bound_by"] = bound(w_dkv)
+        for key in ("ms", "dq_ms", "dkv_ms", "fwd_lse_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "dq_bound_ms", "dkv_bound_ms", "bound_flops",
+                    "bound_bytes", "fwd_lse_bound_ms", "fwd_lse_bound_by", "fwd_plain_ms",
+                    "fwd_library_ms"):
+            log(f"  {name} {key}={rec[key]}")
+    return rec
+
+
+def launch_counts() -> dict[str, int]:
+    from aki_torch.ops.flash_mma import flash_mma_attention
+    from aki_torch.ops.flash_mma_bwd import run_backward
+
+    return {"fwd": flash_mma_attention.launches, "dq": run_backward.dq_launches,
+            "dkv": run_backward.dkv_launches}
+
+
+def zero_launch_counts() -> None:
+    from aki_torch.ops.flash_mma import flash_mma_attention
+    from aki_torch.ops.flash_mma_bwd import run_backward
+
+    flash_mma_attention.launches = run_backward.dq_launches = run_backward.dkv_launches = 0
+
+
+def whole_model_grads(cfg, batch) -> dict:
+    """Phase 7: loss and gradients of one training batch at full width and
+    depth, with the kernels against the plain attention."""
+    from aki_torch.models.aki import AKIModel
+    from aki_torch.models.common import BF16, F32
+    from aki_torch.train.step import Batch, make_loss_fn
+
+    model = AKIModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    model.vision_encoder.requires_grad_(False)
+    dev_batch = Batch(*(torch.as_tensor(x).cuda() for x in (
+        batch.input_ids, batch.images, batch.attn_valid, batch.labels)))
+    lm = model.lang_model
+    picks = {"layer0.qkv_proj": lm.model.layers[0].self_attn["qkv_proj"].weight,
+             "layer31.o_proj": lm.model.layers[-1].self_attn["o_proj"].weight,
+             "layer31.down_proj": lm.model.layers[-1].mlp["down_proj"].weight,
+             "perceiver.latents": model.vision_tokenizer.latents,
+             "lm_head": lm.lm_head.weight}
+    runs = {}
+    # the kernels and the plain attention in bf16, then the plain attention
+    # with f32 compute on the same fp32 weights as the reference of both
+    for name, use_flash, policy in (("kernel", True, BF16), ("plain", False, BF16),
+                                    ("f32", False, F32)):
+        model.zero_grad(set_to_none=True)
+        loss_fn = make_loss_fn(cfg, policy, remat=True, use_flash=use_flash)
+        zero_launch_counts()
+        loss = loss_fn(model, dev_batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = dict(loss=loss.item(), launches=launch_counts(),
+                          grads={k: p.grad.detach().float().clone() for k, p in picks.items()})
+    del model, picks, loss
+    kern, plain, f32 = runs["kernel"], runs["plain"], runs["f32"]
+
+    def cos(a, b):
+        return {k: torch.nn.functional.cosine_similarity(
+            a["grads"][k].flatten(), b["grads"][k].flatten(), dim=0).item() for k in a["grads"]}
+    cos_kp, cos_k32, cos_p32 = cos(kern, plain), cos(kern, f32), cos(plain, f32)
+    rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    want = {"fwd": cfg.siglip.num_layers + 2 * cfg.phi3.num_layers,
+            "dq": cfg.phi3.num_layers, "dkv": cfg.phi3.num_layers}
+    log(f"whole-model grads: loss kernel={kern['loss']:.6f} plain={plain['loss']:.6f} "
+        f"f32={f32['loss']:.6f} rel_diff={rel:.3g} (tol {LOSS_RTOL}); grad cosine kernel vs "
+        f"plain (min {GRAD_COSINE_MIN}) " + " ".join(f"{k}={c:.6f}" for k, c in cos_kp.items())
+        + "; to the f32 run kernel/plain " + " ".join(
+            f"{k}={cos_k32[k]:.6f}/{cos_p32[k]:.6f}" for k in cos_kp)
+        + f"; launches kernel run {kern['launches']} (want {want}), plain run "
+        f"{plain['launches']}")
+    del runs, kern["grads"], plain["grads"], f32["grads"]
+    if not all(math.isfinite(r["loss"]) for r in (kern, plain, f32)):
+        raise SystemExit("chip_smoke: non-finite whole-model loss")
+    if rel > LOSS_RTOL or min(cos_kp.values()) < GRAD_COSINE_MIN or any(
+            1 - cos_k32[k] > 2 * (1 - cos_p32[k]) + 1e-4 for k in cos_kp):
+        raise SystemExit("chip_smoke: whole-model gradients with the kernels differ from plain")
+    if kern["launches"] != want or plain["launches"]["dq"] or plain["launches"]["dkv"]:
+        raise SystemExit("chip_smoke: whole-model step did not launch the kernels as expected")
+    return dict(loss=kern["loss"], plain_loss=plain["loss"], f32_loss=f32["loss"],
+                loss_rel_diff=rel, grad_cosine=cos_kp, grad_cosine_to_f32=cos_k32,
+                plain_grad_cosine_to_f32=cos_p32, launches=kern["launches"])
+
+
+def train_full_width(cfg, batches, t_full) -> dict:
+    """Phase 8: the Trainer at full width, TRAIN_STEPS optimizer steps of
+    grad_accum 2 over the same two micro-batches; each step is one
+    ``run_epoch`` call over the two loader batches."""
+    from aki_torch.train.metrics import MetricsLogger
+    from aki_torch.train.runner import RunnerConfig, Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_run")
+    trainer = Trainer(cfg, RunnerConfig(
+        run_dir=run_dir, precision="bf16", remat=True, frozen_bf16=True, grad_accum=2,
+        warmup_steps=0, learning_rate=1e-4, total_steps=1000, checkpoint_steps=10**9,
+        log_every=1, seed=4), device="cuda",
+        metrics=MetricsLogger(run_dir, use_tensorboard=False))
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in trainer.state.optimizer.params)
+    n_frozen = sum(p.numel() for n, p in trainer.model.named_parameters()
+                   if n.startswith("vision_encoder."))
+    log(f"trainer aki_4b: trainable_params={n_train} frozen_params={n_frozen} (bf16) "
+        f"init_seconds={time.perf_counter() - t0:.1f} "
+        f"memory_allocated_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+    tokens = 2 * batches[0].input_ids.shape[0] * t_full
+    steps = []
+    for i in range(TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        zero_launch_counts()
+        start.record()
+        trainer.run_epoch(iter(batches), epoch=0)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        rec = trainer.metrics.last
+        steps.append(dict(step=rec["step"], loss=rec["training_loss"],
+                          grad_norm=rec["grad_norm"], ms=ms, tokens_per_s=tokens / ms * 1e3,
+                          launches=launch_counts()))
+        log(f"train step {rec['step']}: loss={rec['training_loss']:.6f} "
+            f"grad_norm={rec['grad_norm']:.6f} step_ms={ms:.1f} "
+            f"tokens_per_s={tokens / ms * 1e3:.1f} (spliced tokens {tokens}) "
+            f"launches={steps[-1]['launches']}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train peak_memory_allocated_gb={peak / 1e9:.3f} ({peak} bytes)")
+
+    # where the time goes in one step: the device's busy share and the
+    # attention kernels' share of it
+    profile_call("train_step", lambda: trainer.run_epoch(iter(batches), epoch=0), host=True)
+    trainer.metrics.close()
+    del trainer
+    want = {"fwd": 2 * (cfg.siglip.num_layers + 2 * cfg.phi3.num_layers),
+            "dq": 2 * cfg.phi3.num_layers, "dkv": 2 * cfg.phi3.num_layers}
+    losses = [st["loss"] for st in steps]
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        raise SystemExit("chip_smoke: non-finite training loss")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: training loss did not fall: {losses}")
+    if any(st["launches"] != want for st in steps):
+        raise SystemExit(f"chip_smoke: launches per train step differ from {want}")
+    return dict(steps=steps, peak_bytes=peak, tokens_per_step=tokens)
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -254,13 +655,14 @@ def main() -> int:
     from aki_torch.ops import cuda_build
     from aki_torch.ops.flash_mma import flash_mma_attention
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    build_s = cuda_build.build("flash_mma_fwd")
-    log(f"build seconds={time.perf_counter() - t0:.1f} nvcc_seconds={build_s:.1f}")
-    for line in (cuda_build.BUILD_DIR / "flash_mma_fwd.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    build_s = cuda_build.build_all(KERNEL_SOURCES)
+    log(f"build seconds={time.perf_counter() - t0:.1f} nvcc_seconds={build_s}")
+    for name in KERNEL_SOURCES:
+        for line in (cuda_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {name}:", line.strip())
 
     cfg = aki_4b()
     n_vis = cfg.perceiver.num_latents
@@ -370,19 +772,85 @@ def main() -> int:
     if cos < COSINE_MIN or not same or 1 - cos_k32 > 2 * (1 - cos_p32) + 1e-4:
         raise SystemExit("chip_smoke: prefill logits with the kernel differ from plain")
 
+    # 6.-8. training: free the inference model first
+    del model, with_kernel, plain, f32, state
+    for r in requests:
+        r.clear()
+    free_cuda()
+    from aki_torch.ops.masks import MMASpec
+
+    batch_gen = torch.Generator().manual_seed(6)
+    batches = [train_rows(cfg, batch_gen) for _ in range(2)]
+    t_full, tspec, tvalid = train_spec(cfg, batches[0])
+    tspec = MMASpec(*(x.cuda() for x in (tspec.img_start, tspec.txt_start, tspec.txt_end)))
+    log(f"training batch: text={TRAIN_TEXT} spliced={t_full} "
+        f"spec={[x.tolist() for x in (tspec.img_start, tspec.txt_start, tspec.txt_end)]} "
+        f"valid_keys={tvalid.sum(1).tolist()}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # the frozen tower's forward at the training batch (no gradient, no lse);
+    # the decoder's forward with lse is held inside each backward case
+    cases.append(kernel_case("siglip_train", 2, sg.num_patches, sg.num_patches, sg.num_heads,
+                             sg.num_heads, sg.head_dim, gen, causal=False))
+    bwd = [backward_case("training", 2, t_full, t_full, ph.num_heads, ph.num_kv_heads,
+                         ph.head_dim, gen, spec=tspec, kv_valid=tvalid.cuda(), timed=True),
+           backward_case("siglip", 1, sg.num_patches, sg.num_patches, sg.num_heads,
+                         sg.num_heads, sg.head_dim, gen, causal=False),
+           backward_case("two_image_union", 1, 300, 320, 4, 4, 96, gen,
+                         rects=[(5, 70, 150), (160, 230, 290)],
+                         kv_valid=prefix_valid([300], 320)),
+           backward_case("gqa_h8_hkv2", 2, 150, 150, 8, 2, 96, gen, rects=[(10, 50, 90)]),
+           backward_case("fully_masked_rows", 2, 70, 70, 4, 4, 72, gen,
+                         kv_valid=left_pad, zero_rows=(0, slice(0, 4))),
+           backward_case("q_offset", 2, 40, 200, 4, 4, 96, gen,
+                         q_offset=torch.tensor([100, 150], device="cuda"),
+                         kv_valid=prefix_valid([140, 190], 200)),
+           backward_case("siglip_ragged_valid", 2, 729, 768, 16, 16, 72, gen,
+                         causal=False, kv_valid=prefix_valid([729, 700], 768))]
+    free_cuda()
+    grads = whole_model_grads(cfg, batches[0])
+    free_cuda()
+    train = train_full_width(cfg, batches, t_full)
+
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
+    tb = bwd[0]
+    per_step = train["steps"][0]["launches"]
+    train_launches = {k: sum(st["launches"][k] for st in train["steps"]) for k in per_step}
+    bwd_note = ("plain_ms and library_ms are of the whole backward (dq and dkv "
+                "together: the plain backward, SDPA's backward); bound_ms is this kernel's "
+                "own work; ms from torch.profiler over 10 calls")
     record = {"kernels": [{
         "name": "flash_mma_fwd", "route": "cuda",
         "source": "aki_torch/csrc/flash_mma_fwd.cu",
         "replaces": "aki_tpu/ops/flash_mma.py:175 (_kernel_1kv) and "
-                    "aki_tpu/ops/flash_mma.py:79 (_kernel)",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+                    "aki_tpu/ops/flash_mma.py:79 (_kernel); its lse output carries "
+                    "aki_tpu/ops/flash_mma_bwd.py:68 (_lse_kernel)",
+        "launches": launches + train_launches["fwd"],
+        "launches_by_path": {"generate": launches, "train": train_launches["fwd"]},
+        "max_abs_err": max([c["max_abs_err"] for c in cases]
+                           + [c["fwd_max_abs_err"] for c in bwd]),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": "decoder_prefill_a " + "x".join(map(str, head["shape"])),
+        "train_fwd_lse": {k: tb[k] for k in ("fwd_lse_ms", "fwd_lse_bound_ms",
+                                             "fwd_lse_bound_by", "fwd_plain_ms",
+                                             "fwd_library_ms")},
         "shapes": main_cases,
-    }]}
+    }] + [{
+        "name": f"flash_mma_{kn}", "route": "cuda",
+        "source": "aki_torch/csrc/flash_mma_bwd.cu",
+        "replaces": ("aki_tpu/ops/flash_mma_bwd.py:111 (_dq_kernel)" if kn == "dq"
+                     else "aki_tpu/ops/flash_mma_bwd.py:157 (_dkv_kernel)"),
+        "launches": train_launches[kn],
+        "max_abs_err": max(c[g]["max_abs_err"] for c in bwd
+                           for g in (("dq",) if kn == "dq" else ("dk", "dv"))),
+        "ms": tb[f"{kn}_ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb[f"{kn}_bound_ms"],
+        "bound_by": tb[f"{kn}_bound_by"], "library_ms": tb["library_ms"],
+        "shape": "training " + "x".join(map(str, tb["shape"])),
+        "backward_ms": tb["ms"], "backward_bound_ms": tb["bound_ms"],
+        "note": bwd_note,
+    } for kn in ("dq", "dkv")],
+        "backward_cases": bwd, "whole_model": grads,
+        "train": {k: train[k] for k in ("steps", "peak_bytes", "tokens_per_step")}}
     log(json.dumps(record))
     log(f"elapsed_seconds={time.perf_counter() - t_start:.1f}")
     log(card)

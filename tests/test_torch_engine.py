@@ -15,7 +15,6 @@ from aki_tpu.infer import engine as jax_engine
 from aki_tpu.infer.sampling import SamplingConfig as JaxSampling
 from aki_tpu.infer.sampling import sample as jax_sample
 from aki_tpu.models import configs as jax_configs
-from aki_tpu.models.aki import init_aki
 from aki_tpu.models.common import F32 as JAX_F32
 from aki_torch.convert import from_jax_params
 from aki_torch.infer import engine
@@ -23,6 +22,8 @@ from aki_torch.infer.sampling import SamplingConfig, filter_logits, sample
 from aki_torch.models.aki import AKIModel
 from aki_torch.models.common import F32
 from aki_torch.models.configs import aki_tiny
+
+from ._jax_tiny import tiny_params
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 MAX_LEN, NEW = 32, 8
@@ -33,7 +34,7 @@ def tiny():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg_j, cfg = jax_configs.aki_tiny(), aki_tiny()
-    params = jax.tree.map(np.asarray, init_aki(jax.random.PRNGKey(3), cfg_j))
+    params = tiny_params(3)
     model = AKIModel(cfg, device="cpu")
     model.load_state_dict(from_jax_params(params, cfg), strict=True)
     rng = np.random.RandomState(4)

@@ -17,7 +17,6 @@ import torch
 from aki_tpu.models import configs as jax_configs
 from aki_tpu.models.aki import aki_forward as jax_aki_forward
 from aki_tpu.models.aki import embed_text as jax_embed_text
-from aki_tpu.models.aki import init_aki
 from aki_tpu.models.common import F32 as JAX_F32
 from aki_tpu.models.fusion import collapse_logits as jax_collapse
 from aki_tpu.models.fusion import splice_vision_tokens as jax_splice
@@ -33,6 +32,8 @@ from aki_torch.models.configs import aki_tiny
 from aki_torch.models.fusion import collapse_logits, splice_vision_tokens
 from aki_torch.ops.masks import MMASpec, causal_spec
 
+from ._jax_tiny import tiny_params
+
 OP_TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -42,7 +43,7 @@ def tiny():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg_j, cfg = jax_configs.aki_tiny(), aki_tiny()
-    params = jax.tree.map(np.asarray, init_aki(jax.random.PRNGKey(0), cfg_j))
+    params = tiny_params(0)
     rng = np.random.RandomState(0)
     # nonzero biases and norm scales, so that every parameter shows up
     params = jax.tree.map(
