@@ -74,7 +74,7 @@ class AKIModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lang_model.lm_head.weight.device
+        return self.lang_model.lm_head.bias.device
 
 
 @dataclasses.dataclass
@@ -103,8 +103,13 @@ def embed_text(model: AKIModel, ids: torch.Tensor, policy: Policy = BF16) -> tor
 
 
 def lm_logits(model: AKIModel, hidden: torch.Tensor, policy: Policy = BF16) -> torch.Tensor:
+    """Logits of ``hidden`` through the decoupled head; a head quantized by
+    :func:`~aki_torch.models.quant.quantize_params` (``lm_head.quant``)
+    goes through :func:`~aki_torch.models.quant.mm`, its bias and the extra
+    head stay float."""
     head = model.lang_model.lm_head
-    return decoupled_logits(hidden, policy.cast(head.weight),
+    quant = getattr(head, "quant", None)
+    return decoupled_logits(hidden, policy.cast(head.weight) if quant is None else quant,
                             policy.cast(head.additional_fc.weight),
                             model.cfg.initial_tokenizer_len,
                             head_b=head.bias, extra_b=head.additional_fc.bias)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import empty
+from .quant import is_quantized, mm
 
 
 class DecoupledEmbedding(nn.Module):
@@ -58,8 +59,17 @@ def decoupled_logits(hidden: torch.Tensor, head_w: torch.Tensor,
                      extra_b: torch.Tensor | None = None) -> torch.Tensor:
     """Logits over ``initial_tokenizer_len + num_extra`` ids. ``head_w``
     ``(vocab, hidden)`` is truncated to the live vocab before the matmul;
-    the biases add after the product, cast to its dtype."""
-    base = hidden @ head_w[:initial_tokenizer_len].T
+    the biases add after the product, cast to its dtype. A quantized head
+    (:class:`~aki_torch.models.quant.QuantTensor`) goes through
+    :func:`~aki_torch.models.quant.mm` over all its rows and is truncated
+    after the product (the JAX package's ``take_columns`` truncates
+    before): the card's int8 product takes only output widths that are
+    multiples of 8, which the live vocab (32011) is not, and with
+    per-output-channel scales every kept column is the same number."""
+    if is_quantized(head_w):
+        base = mm(hidden, head_w)[..., :initial_tokenizer_len]
+    else:
+        base = hidden @ head_w[:initial_tokenizer_len].T
     if head_b is not None:
         base = base + head_b[:initial_tokenizer_len].to(base.dtype)
     extra = hidden @ extra_w.T

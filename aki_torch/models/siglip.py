@@ -7,6 +7,14 @@ pre-norm blocks with biased QKV and a gelu-tanh MLP, and a post-LN after
 the last block. Attention is full (non-causal) through the flash MMA kernel.
 Parameter names follow HF ``SiglipVisionTransformer``, as the reference
 checkpoint stores it under ``vision_encoder.``.
+
+Under weights quantized by :func:`~aki_torch.models.quant.quantize_params`
+(``vision=True``) the block follows the JAX tower's serving form
+(``aki_tpu/models/siglip.py:97-143``): fused layernorm + quantize at both
+norms, int8 products with float biases, fused gelu(fc1 + b) + quantize
+ahead of fc2 over the padded MLP width, and, on the card, attention with
+bf16 probabilities (:func:`~aki_torch.ops.attention.encoder_attention_bf16p`);
+on the CPU the tower keeps the dense attention, as JAX does off the TPU.
 """
 
 from __future__ import annotations
@@ -15,11 +23,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import dense_attention
+from ..ops.attention import dense_attention, encoder_attention_bf16p
 from ..ops.flash_mma import flash_mma_attention
 from .common import (BF16, Policy, empty, init_const, init_norm, init_normal,
                      layernorm, linear)
 from .configs import SigLIPVisionConfig
+from .quant import gelu_quant_acts, is_quantized, mm, norm_quant_acts, project
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -50,17 +59,30 @@ class SiglipEncoderLayer(nn.Module):
         b, t, d = x.shape
         nh, dh, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
         cast = policy.cast
-        h = layernorm(cast(self.layer_norm1.weight), cast(self.layer_norm1.bias), x, eps)
-        att = self.self_attn
-        q, k, v = (linear(att[n], h, policy).reshape(b, t, nh, dh)
-                   for n in ("q_proj", "k_proj", "v_proj"))
-        attend = flash_mma_attention if use_flash else dense_attention
-        o = attend(q, k, v, causal=False)
-        x = x + linear(att["out_proj"], o.reshape(b, t, d), policy)
-        h2 = layernorm(cast(self.layer_norm2.weight), cast(self.layer_norm2.bias), x, eps)
-        y1 = linear(self.mlp["fc1"], h2, policy)
-        y1 = F.gelu(y1.float(), approximate="tanh").to(y1.dtype)
-        return x + linear(self.mlp["fc2"], y1, policy)
+        att, mlp = self.self_attn, self.mlp
+        ln1, ln2 = self.layer_norm1, self.layer_norm2
+        fused_qkv = "qkv_proj" in att                  # quantize_params(fuse=True)
+        probe = att["qkv_proj" if fused_qkv else "q_proj"]
+        h = norm_quant_acts("ln", cast(ln1.weight), cast(ln1.bias), x, eps, probe=probe)
+        if fused_qkv:
+            q, k, v = (y.reshape(b, t, nh, dh)
+                       for y in project(att["qkv_proj"], h, policy).split(d, dim=-1))
+        else:
+            q, k, v = (project(att[n], h, policy).reshape(b, t, nh, dh)
+                       for n in ("q_proj", "k_proj", "v_proj"))
+        if use_flash and is_quantized(probe) and x.device.type == "cuda":
+            o = encoder_attention_bf16p(q, k, v)
+        else:
+            o = (flash_mma_attention if use_flash else dense_attention)(q, k, v, causal=False)
+        x = x + project(att["out_proj"], o.reshape(b, t, d), policy)
+        h2 = norm_quant_acts("ln", cast(ln2.weight), cast(ln2.bias), x, eps, probe=mlp["fc1"])
+        if is_quantized(mlp["fc1"]):
+            # the fc1 bias goes into the fused gelu + quantize, as in JAX
+            y1 = gelu_quant_acts(mm(h2, mlp["fc1"]), cast(mlp["fc1"].bias), probe=mlp["fc2"])
+        else:
+            y1 = linear(mlp["fc1"], h2, policy)
+            y1 = F.gelu(y1.float(), approximate="tanh").to(y1.dtype)
+        return x + project(mlp["fc2"], y1, policy)
 
 
 class SigLIPVisionTransformer(nn.Module):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the aki_torch port's main path on one NVIDIA GPU and hold its
-CUDA kernel against the plain PyTorch version.
+"""Drive the aki_torch port's paths on one NVIDIA GPU and hold each of its
+CUDA kernels against the plain PyTorch version.
 
 Usage, from the root of a checkout, on a machine with one H100:
 
@@ -8,10 +8,11 @@ Usage, from the root of a checkout, on a machine with one H100:
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1;
-  2. build: nvcc for sm_90a of the path's one kernel source;
-  3. kernels: each kernel against its plain version in bf16 at the main
-     path's shapes and on edge cases, with times beside the bound and the
-     PyTorch library call;
+  2. build: nvcc for sm_90a of the kernel sources (KERNEL_SOURCES), one nvcc
+     per source, all started together;
+  3. kernels: the flash forward against its plain version in bf16 at the
+     generation path's shapes and on edge cases, with times beside the bound
+     and the PyTorch library call;
   4. generation: aki_4b() at full width (27-layer SigLIP, 6-layer Perceiver,
      32-layer Phi-3.5-mini), random bf16 weights from a seeded generator,
      32 greedy tokens for two requests (one 384x384 image + a prompt of
@@ -32,7 +33,26 @@ Phases, each fatal on failure:
      f32 compute, with the launches of that one step;
   8. the Trainer at full aki_4b() width: bf16 frozen tower, remat,
      grad_accum 2, four AdamW steps on the same two micro-batches; loss,
-     grad_norm, step ms, tokens/s, peak memory and launches per step.
+     grad_norm, step ms, tokens/s, peak memory and launches per step;
+  9. the fused "op + int8 quantize" kernels (rms, ln, silu*mul, gelu)
+     against their plain versions at the W8A8 serving prefill's shapes (48
+     rows of 655 decoder tokens, 48 images of 729 patches), at phase 11's
+     one-request prefills and on edge rows, with times beside the bound;
+ 10. the int8-KV decode attention kernel against its plain version at the
+     serving cache (32 layers, 48 rows, 704 slots, 32 heads x 96) with
+     ragged lengths, both end layers, a live width below the rows and a GQA
+     case, and at phase 11's one-row caches (1024 and 1280 slots) at its
+     first and last decode lengths, with times beside the bound;
+ 11. int8 generation: aki_4b() at full width and depth quantized W8A8
+     (tower included) with the int8 KV cache, its prefill logits against
+     the bf16 and f32 runs of the same weights, and 32 greedy tokens for the
+     two phase-4 requests, with the launches of each call;
+ 12. the serving engine as the JAX package's bench.py configures it (48
+     slots, max_len 704, bucket 512, batched admission of 48, decode chunks
+     of 8, W8A8, int8 KV, uint8 images, tail compaction, uploads of 16)
+     draining 96 requests, the tokens of the first 8 held to the one-shot
+     path (teacher-forced); the bf16-probability prefill attentions timed
+     against the flash kernel at the serving prefill shapes.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -55,6 +75,7 @@ import torch  # noqa: E402
 # H100 SXM data-sheet peaks at its full 700 W power limit; the card's own
 # limit is printed beside every number
 PEAK_BF16_FLOPS = 989e12      # dense bf16 tensor cores
+PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12      # HBM3
 NEW_TOKENS = 32
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise: both round the
@@ -91,7 +112,36 @@ LOSS_RTOL = 1e-2
 # attention, the kernel's 1 - cosine is at most twice the plain path's.
 GRAD_COSINE_MIN = 0.99
 TRAIN_STEPS = 4
-KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd")
+# Fused quantize kernels against their plain versions on the same bf16 rows:
+# both compute h in f32 but sum the row statistics in another order (and the
+# kernel may contract a multiply-add), so a value at a rounding tie of h / s
+# can land one int8 step away; the scales max|h| / 127 agree to f32 rounding.
+QUANT_STEP_MAX, QUANT_SCALE_RTOL = 1, 1e-5
+# Int8 serving against bf16 on the same weights, prefill logits at the last
+# position: the JAX package's own full-depth W8A8 + int8-KV drift gate
+# (tests/test_quant_drift.py:73-74): mean |int8 - bf16| below 0.25 of the bf16
+# logits' standard deviation and the largest below 2.0 of it. The int8 path
+# is held to the f32 run of the same weights by the same bound.
+DRIFT_MEAN_MAX, DRIFT_MAX_MAX = 0.25, 2.0
+# elementwise f32 operations per value of each fused quantize op (its
+# prologue, then |h|, the max, the division, the rounding and the clamp)
+QUANT_OPS_PER_VALUE = {"rms": 10, "ln": 12, "silu": 11, "gelu": 16}
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BUCKET, SERVE_REQUESTS = 48, 704, 512, 96
+# The server's tokens against the one-shot path on the same weights, for the
+# first 8 requests. At random weights the top two logits can sit within the
+# rounding that the server's batch changes (bf16 products of 48 rows, other
+# summation orders), so exact agreement is not asked of every token: of the
+# 8 first tokens at least 4 must equal a one-shot generate's. Every served
+# token is held instead under teacher forcing: the one-shot prefill and
+# decode steps are fed the server's own tokens, and at each position the
+# one-shot's best logit may lead the served token's by at most twice the
+# drift delta that batching moves a logit (the largest |batched - alone| of
+# the checked requests' prefill logits over their std): if each logit moves
+# by at most delta, the server's argmax trails the one-shot's by at most
+# 2 delta. A wrong cache, position or slot gives a token drawn from the
+# wrong context, several std below the best.
+SERVE_FIRST_TOKEN_CHECKS, SERVE_FIRST_TOKEN_MIN, SERVE_GAP_FACTOR = 8, 4, 2.0
+KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd", "fused_quant", "decode_attention")
 TRAIN_TEXT = 512          # text tokens per training row; one <image> -> 144
 
 
@@ -164,7 +214,8 @@ def profile_call(name: str, fn, reps: int = 3, host: bool = False) -> None:
         log(f"profile {name} host: " + "; ".join(
             f"{e.key[:50]}={e.self_cpu_time_total / 1e3:.1f}ms x{e.count}" for e in top_host))
     kern = {n: sum(v for k, v in per_name.items() if n in k)
-            for n in ("flash_mma_fwd", "flash_mma_dq", "flash_mma_dkv")}
+            for n in ("flash_mma_fwd", "flash_mma_dq", "flash_mma_dkv", "fused_quant_kernel",
+                      "decode_attention_kernel")}
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"profile {name}: median of {reps} calls: wall_ms={wall_ms:.3f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={idle:.3f} "
@@ -630,6 +681,479 @@ def train_full_width(cfg, batches, t_full) -> dict:
     return dict(steps=steps, peak_bytes=peak, tokens_per_step=tokens)
 
 
+FUSED_QUANT_REPLACES = {
+    "rms": "aki_tpu/ops/fused_quant.py:66 (_rms_quant_kernel)",
+    "ln": "aki_tpu/ops/fused_quant.py:73 (_ln_quant_kernel)",
+    "silu": "aki_tpu/ops/fused_quant.py:83 (_silu_mul_quant_kernel)",
+    "gelu": "aki_tpu/ops/fused_quant.py:89 (_gelu_quant_kernel)",
+}
+K4_REPLACES = ("aki_tpu/ops/decode_attention.py:70 (_kernel; wrapper decode_attention_flat "
+               ":254, pallas_call :301)")
+
+
+def fused_quant_fns(op):
+    """(kernel wrapper, plain version) of one fused quantize op."""
+    from aki_torch.ops import fused_quant as fq
+
+    return {"rms": (fq.rmsnorm_quant, fq.rmsnorm_quant_reference),
+            "ln": (fq.layernorm_quant, fq.layernorm_quant_reference),
+            "silu": (fq.silu_mul_quant, fq.silu_mul_quant_reference),
+            "gelu": (fq.gelu_quant, fq.gelu_quant_reference)}[op]
+
+
+def int8_launch_counts() -> dict[str, int]:
+    from aki_torch.ops.decode_attention import decode_attention_flat
+    from aki_torch.ops.flash_mma import flash_mma_attention
+
+    return {**{op: fused_quant_fns(op)[0].launches for op in FUSED_QUANT_REPLACES},
+            "decode": decode_attention_flat.launches, "flash_fwd": flash_mma_attention.launches}
+
+
+def zero_int8_launch_counts() -> None:
+    from aki_torch.ops.decode_attention import decode_attention_flat
+    from aki_torch.ops.flash_mma import flash_mma_attention
+
+    for op in FUSED_QUANT_REPLACES:
+        fused_quant_fns(op)[0].launches = 0
+    decode_attention_flat.launches = flash_mma_attention.launches = 0
+
+
+def fused_quant_case(op, rows, d, gen, edge=False, timed=False) -> dict:
+    """Phase 9: one fused quantize kernel against its plain version on bf16
+    rows; ``edge`` makes row 0 all zero and gives row 1 one huge value.
+    silu*mul reads gate and up as the two halves of one (rows, 2d) product,
+    as the decoder hands them over."""
+    fn, ref = fused_quant_fns(op)
+    dev = "cuda"
+
+    def bf(*shape, lo=None):
+        x = torch.randn(*shape, device=dev, generator=gen)
+        return (x if lo is None else x.abs() + lo).to(torch.bfloat16)
+
+    x = bf(rows, 2 * d) if op == "silu" else bf(rows, d)
+    if edge:
+        x[0] = 0
+        x[1, 3] = 3e4
+    if op == "silu":
+        x, up = x.chunk(2, dim=-1)
+    args = {"rms": lambda: (x, bf(d, lo=0.5), 1e-5),
+            "ln": lambda: (x, bf(d, lo=0.5), bf(d) * 0.1, 1e-6),
+            "silu": lambda: (x, up),
+            "gelu": lambda: (x, bf(d) * 0.1)}[op]()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = ref(*args)
+    dq = (got[0].int() - want[0].int()).abs()
+    srel = ((got[1] - want[1]).abs() / want[1]).max().item()
+    ok = (got[0].dtype == torch.int8 and got[1].shape == (rows, 1)
+          and dq.max().item() <= QUANT_STEP_MAX and srel <= QUANT_SCALE_RTOL)
+    if edge and op in ("rms", "silu"):
+        # an all-zero row quantizes to zeros with scale 1 (ln and gelu add a bias)
+        ok = ok and bool((got[0][0] == 0).all()) and got[1][0].item() == 1.0
+    rec = dict(name=op, rows=rows, d=d, edge=edge, max_abs_err=dq.max().item(),
+               frac_one_step=(dq > 0).float().mean().item(), scale_max_rel_err=srel)
+    log(f"fused quant {op} rows={rows} d={d} edge={edge}: max |q_kernel - q_plain|="
+        f"{rec['max_abs_err']} (max {QUANT_STEP_MAX}) fraction one step off="
+        f"{rec['frac_one_step']:.3g} scale max rel err={srel:.3g} (max {QUANT_SCALE_RTOL}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: fused quant kernel {op} disagrees with the plain version")
+    if timed:
+        n_vec = {"rms": 1, "ln": 2, "silu": 0, "gelu": 1}[op]
+        n_rows_in = 2 if op == "silu" else 1
+        nbytes = rows * d * 2 * n_rows_in + n_vec * d * 2 + rows * d + rows * 4
+        work = (QUANT_OPS_PER_VALUE[op] * rows * d, nbytes)
+        t_ops, t_bytes = work[0] / PEAK_F32_FLOPS * 1e3, work[1] / PEAK_HBM_BYTES * 1e3
+        rec.update(ms=cuda_ms(lambda: fn(*args)), plain_ms=cuda_ms(lambda: ref(*args)),
+                   library_ms=None, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_flops=work[0], bound_bytes=work[1])
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes"):
+            log(f"  fused quant {op} {key}={rec[key]}")
+    return rec
+
+
+def decode_f32(q, k, ks, v, vs, lengths, layer, live_width=None):
+    """Attention in f32 over the dequantized cache (k * ks, v * vs), with
+    nothing rounded to bf16: the f32 reference of the decode kernel."""
+    b, _, h, d = q.shape
+    s_len, hkv = ks.shape[2], ks.shape[3]
+    rows = b if live_width is None else min(live_width, b)
+    group = h // hkv
+    kd = (k[layer, :rows].float().view(rows, s_len, hkv, d)
+          * ks[layer, :rows, :, :, None]).repeat_interleave(group, dim=2)
+    vd = (v[layer, :rows].float().view(rows, s_len, hkv, d)
+          * vs[layer, :rows, :, :, None]).repeat_interleave(group, dim=2)
+    sc = torch.einsum("bhd,bshd->bhs", q[:rows, 0].float(), kd) * d ** -0.5
+    ok = torch.arange(s_len, device=q.device)[None, None] < lengths[:rows, None, None]
+    p = torch.softmax(sc.masked_fill(~ok, float("-inf")), dim=-1).nan_to_num(0.0)
+    out = torch.zeros(b, 1, h, d, device=q.device)
+    out[:rows, 0] = torch.einsum("bhs,bshd->bhd", p, vd)
+    return out
+
+
+def decode_case(name, n_layers, b, s_len, h, hkv, d, lengths, layers, gen, live_width=None,
+                timed=False) -> dict:
+    """Phase 10: the int8-KV decode kernel against its plain version on one
+    random cache, at each of ``layers``; element-wise and against attention in
+    f32 over the dequantized cache; rows past ``live_width`` and rows of
+    length 0 must come out 0."""
+    from aki_torch.ops.decode_attention import (decode_attention_flat,
+                                                decode_attention_flat_reference)
+
+    dev = "cuda"
+    shape, sshape = (n_layers, b, s_len, hkv * d), (n_layers, b, s_len, hkv)
+    k = torch.randint(-127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
+    v = torch.randint(-127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
+    ks = torch.rand(sshape, device=dev, generator=gen) * 0.02 + 1e-3
+    vs = torch.rand(sshape, device=dev, generator=gen) * 0.02 + 1e-3
+    q = torch.randn(b, 1, h, d, device=dev, generator=gen).to(torch.bfloat16)
+    lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    rows = b if live_width is None else live_width
+    rec = dict(name=name, cache=list(shape), heads=[h, hkv, d], live_width=live_width,
+               lengths=lengths, layers=[])
+    for layer in layers:
+        got = decode_attention_flat(q, k, ks, v, vs, lens, layer, live_width=live_width)
+        torch.cuda.synchronize()
+        want = decode_attention_flat_reference(q, k, ks, v, vs, lens, layer, live_width=live_width)
+        exact = decode_f32(q, k, ks, v, vs, lens, layer, live_width)
+        diff = (got.float() - want.float()).abs()
+        k_err = (got.float() - exact)[:rows].abs().mean().item()
+        p_err = (want.float() - exact)[:rows].abs().mean().item()
+        dead = torch.cat([got[rows:].flatten(), got[:rows][lens[:rows] == 0].flatten()])
+        ok = (bool(torch.isfinite(got).all())
+              and bool((diff <= ATOL + RTOL * want.float().abs()).all())
+              and k_err <= F32_ERR_RATIO * p_err + 1e-7 and bool((dead == 0).all()))
+        rec["layers"].append(dict(layer=layer, max_abs_err=diff.max().item(),
+                                  mean_abs_err_vs_f32=k_err, plain_mean_abs_err_vs_f32=p_err))
+        log(f"decode {name} layer {layer}: q={tuple(q.shape)} cache={shape} live_width="
+            f"{live_width} max_abs_err={diff.max().item():.4g} (tol |d|<={ATOL}+{RTOL}*|plain|); "
+            f"mean |err| vs f32 kernel {k_err:.4g} plain {p_err:.4g} (kernel <= "
+            f"{F32_ERR_RATIO}x plain); dead rows zero {bool((dead == 0).all())} "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: decode kernel case {name} disagrees with plain")
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in rec["layers"])
+
+    def work(lens_):
+        """(FLOPs, bytes) of one launch: 4*d per (query head, live key) for
+        QK and PV; each live key's K and V rows and scales read once, q read
+        and the output written once."""
+        live = sum(min(max(n, 0), s_len) for n in lens_[:rows])
+        return (4 * d * h * live,
+                live * (2 * hkv * d + 2 * 4 * hkv) + rows * h * d * 2 + b * h * d * 2 + b * 4)
+
+    if timed:
+        full = torch.full((b,), s_len, device=dev, dtype=torch.int32)
+        for label, lens_t, lens_l in (("full", full, [s_len] * b), ("ragged", lens, lengths)):
+            w = work(lens_l)
+            t_ops, t_bytes = w[0] / PEAK_BF16_FLOPS * 1e3, w[1] / PEAK_HBM_BYTES * 1e3
+            rec[label] = dict(
+                ms=cuda_ms(lambda: decode_attention_flat(q, k, ks, v, vs, lens_t, 1,
+                                                         live_width=live_width)),
+                plain_ms=cuda_ms(lambda: decode_attention_flat_reference(
+                    q, k, ks, v, vs, lens_t, 1, live_width=live_width), reps=5),
+                library_ms=None, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_flops=w[0], bound_bytes=w[1])
+            log(f"  decode {name} {label} lengths: " + " ".join(
+                f"{key}={val}" for key, val in rec[label].items()))
+    return rec
+
+
+def logit_drift(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """Mean and largest |a - ref| over the standard deviation of ``ref``."""
+    d, sd = (a.float() - ref.float()).abs(), ref.float().std()
+    return (d.mean() / sd).item(), (d.max() / sd).item()
+
+
+def int8_generation(cfg, prompts) -> tuple:
+    """Phase 11: aki_4b() quantized W8A8 (tower included) with the int8 KV
+    cache. Request a's last-position prefill logits against the bf16 and f32
+    runs of the same weights, then NEW_TOKENS greedy tokens for each request
+    with the launches of each call; returns (the quantized model, record)."""
+    from aki_torch.infer.engine import decode_step, generate, prefill
+    from aki_torch.models.aki import AKIModel
+    from aki_torch.models.common import F32
+    from aki_torch.models.quant import quantize_params
+
+    t0 = time.perf_counter()
+    model = AKIModel(cfg, device="cuda", dtype=torch.bfloat16,
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(False)
+    a = prompts[0]
+    args = (a["ids"], a["image"], a["valid"], a["max_len"])
+    bf16_logits = prefill(model, *args).last_logits
+    model.float()
+    f32_logits = prefill(model, *args, policy=F32, use_flash=False).last_logits
+    model.bfloat16()                      # bf16-born weights: the round trip is exact
+    free_cuda()
+    quantize_params(model, mode="w8a8", vision=True)
+    free_cuda()
+    torch.cuda.synchronize()
+    log(f"int8 model: quantized in {time.perf_counter() - t0:.1f} s (with the bf16 and f32 "
+        f"reference prefills); memory_allocated_gb={torch.cuda.memory_allocated() / 1e9:.3f}")
+    n_tower, n_dec = cfg.siglip.num_layers, cfg.phi3.num_layers
+    per_prefill = {"ln": 2 * n_tower, "gelu": n_tower, "rms": 2 * n_dec, "silu": n_dec}
+
+    zero_int8_launch_counts()
+    int8_logits = prefill(model, *args, kv_int8=True).last_logits
+    torch.cuda.synchronize()
+    counts = int8_launch_counts()
+    cosine = lambda x, y: torch.nn.functional.cosine_similarity(  # noqa: E731
+        x.float(), y.float(), dim=-1).item()
+    d_bf16, d_f32, d_ref = (logit_drift(int8_logits, bf16_logits),
+                            logit_drift(int8_logits, f32_logits),
+                            logit_drift(bf16_logits, f32_logits))
+    rec = dict(prefill_logits=dict(
+        drift_vs_bf16=d_bf16, drift_vs_f32=d_f32, bf16_drift_vs_f32=d_ref,
+        cosine_vs_bf16=cosine(int8_logits, bf16_logits),
+        cosine_vs_f32=cosine(int8_logits, f32_logits),
+        bf16_cosine_vs_f32=cosine(bf16_logits, f32_logits),
+        argmax_equal_bf16=bool((int8_logits.argmax(-1) == bf16_logits.argmax(-1)).all()),
+        launches=counts))
+    log("int8 prefill logits (request a): " + " ".join(
+        f"{k_}={v_}" for k_, v_ in rec["prefill_logits"].items())
+        + f"; gate: mean drift < {DRIFT_MEAN_MAX} and max drift < {DRIFT_MAX_MAX} of the "
+        "reference's std, against bf16 and against f32")
+    if not all(torch.isfinite(x).all() for x in (bf16_logits, f32_logits, int8_logits)):
+        raise SystemExit("chip_smoke: non-finite int8 prefill logits")
+    if any(dm >= DRIFT_MEAN_MAX or dx >= DRIFT_MAX_MAX for dm, dx in (d_bf16, d_f32)):
+        raise SystemExit("chip_smoke: int8 prefill logits drift past the gate")
+    if {op: counts[op] for op in per_prefill} != per_prefill or counts["decode"] or \
+            counts["flash_fwd"]:
+        raise SystemExit(f"chip_smoke: int8 prefill launches {counts}, want {per_prefill}")
+    del bf16_logits, f32_logits, int8_logits
+
+    torch.cuda.reset_peak_memory_stats()
+    rec["requests"] = []
+    for r in prompts:
+        generate(model, r["ids"], r["image"], r["valid"], 2, r["max_len"], kv_int8=True)
+        torch.cuda.synchronize()
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        zero_int8_launch_counts()
+        t0 = time.perf_counter()
+        start.record()
+        tokens, num = generate(model, r["ids"], r["image"], r["valid"], NEW_TOKENS,
+                               r["max_len"], kv_int8=True, on_prefill=mid.record)
+        end.record()
+        end.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        counts = int8_launch_counts()
+        want = {**per_prefill, "decode": n_dec * NEW_TOKENS, "flash_fwd": 0}
+        toks = tokens[0].tolist()
+        rr = dict(name=r["name"], spliced=r["t_full"], max_len=r["max_len"],
+                  prefill_ms=start.elapsed_time(mid),
+                  decode_ms_per_token=mid.elapsed_time(end) / NEW_TOKENS,
+                  generate_ms=gen_ms, launches=counts, tokens=toks)
+        rec["requests"].append(rr)
+        log(f"int8 generate {r['name']}: spliced={r['t_full']} max_len={r['max_len']} "
+            f"prefill_ms={rr['prefill_ms']:.2f} decode_ms_per_token="
+            f"{rr['decode_ms_per_token']:.3f} generate_ms={gen_ms:.1f} launches={counts} "
+            f"(want {want}) tokens={toks}")
+        if counts != want:
+            raise SystemExit(f"chip_smoke: int8 generate launches {counts}, want {want}")
+        if tokens.shape != (1, NEW_TOKENS) or int(num[0]) != NEW_TOKENS or not all(
+                0 <= x < cfg.output_vocab for x in toks):
+            raise SystemExit("chip_smoke: int8 generated tokens out of shape or range")
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"int8 generate peak_memory_allocated_gb={rec['peak_bytes'] / 1e9:.3f}")
+    for r in prompts:
+        pargs = (r["ids"], r["image"], r["valid"], r["max_len"])
+        profile_call(f"int8_prefill_{r['name']}", lambda: prefill(model, *pargs, kv_int8=True))
+        state = prefill(model, *pargs, kv_int8=True)
+        profile_call(f"int8_decode_step_{r['name']}",
+                     lambda: decode_step(model, state, state.last_logits.argmax(-1)))
+        del state
+    return model, rec
+
+
+def serving_prompts(cfg, n: int) -> list[tuple]:
+    """The drain's traffic, as the JAX package's bench.py draws it: n prompts
+    of 256-511 text tokens with <image> at 1 and <|assistant|> at 40, one
+    uint8 384x384 image each, and budgets of 8-32 new tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    s = cfg.siglip.image_size
+    out = []
+    for _ in range(n):
+        m = int(rng.randint(SERVE_BUCKET // 2, SERVE_BUCKET))
+        ids = rng.randint(5, cfg.initial_tokenizer_len - 1, size=m)
+        ids[1] = cfg.media_token_id
+        ids[40] = cfg.assistant_token_id
+        px = rng.randint(0, 256, (s, s, 3)).astype(np.uint8)
+        out.append((ids.tolist(), px, int(rng.randint(8, 33))))
+    return out
+
+
+def prefill_attention_times(cfg, gen) -> dict:
+    """The bf16-probability attentions of the int8 prefill against the flash
+    kernel at the serving prefill shapes (48 rows of 655 decoder tokens under
+    an MMA block, 48 images of 729 patches)."""
+    from aki_torch.ops.attention import decoder_attention_bf16p, encoder_attention_bf16p
+    from aki_torch.ops.flash_mma import flash_mma_attention
+    from aki_torch.ops.masks import MMASpec
+
+    ph, sg, dev = cfg.phi3, cfg.siglip, "cuda"
+    n_vis = cfg.perceiver.num_latents
+    b, t = SERVE_SLOTS, SERVE_BUCKET + n_vis - 1
+    out = {}
+    q, k, v = (torch.randn(b, t, ph.num_heads, ph.head_dim, device=dev,
+                           generator=gen).to(torch.bfloat16) for _ in range(3))
+    # <image> at 1, <|assistant|> at 40: the rectangle bench.py's prompts give
+    spec = MMASpec(*(torch.full((b,), x, dtype=torch.int32, device=dev)
+                     for x in (1, 1 + n_vis, 41 + n_vis - 1)))
+    valid = torch.ones((b, t), dtype=torch.int32, device=dev)
+    kw = dict(spec=spec, kv_valid=valid)
+    out["decoder"] = dict(shape=[b, t, t, ph.num_heads, ph.head_dim],
+                          bf16p_ms=cuda_ms(lambda: decoder_attention_bf16p(q, k, v, **kw), reps=5),
+                          flash_ms=cuda_ms(lambda: flash_mma_attention(q, k, v, **kw), reps=5))
+    del q, k, v
+    free_cuda()
+    t = sg.num_patches
+    q, k, v = (torch.randn(b, t, sg.num_heads, sg.head_dim, device=dev,
+                           generator=gen).to(torch.bfloat16) for _ in range(3))
+    out["tower"] = dict(shape=[b, t, t, sg.num_heads, sg.head_dim],
+                        bf16p_ms=cuda_ms(lambda: encoder_attention_bf16p(q, k, v), reps=5),
+                        flash_ms=cuda_ms(lambda: flash_mma_attention(q, k, v, causal=False),
+                                         reps=5))
+    del q, k, v
+    free_cuda()
+    log(f"prefill attention at the serving shapes, bf16 probabilities vs the flash kernel: {out}")
+    return out
+
+
+def serve_drain(cfg, model) -> dict:
+    """Phase 12: the serving engine in the bench.py configuration drains
+    SERVE_REQUESTS requests under torch.profiler (device activity only);
+    every request must complete with its budget, and the tokens of the
+    first SERVE_FIRST_TOKEN_CHECKS requests are held to the one-shot path
+    on the same weights: at least SERVE_FIRST_TOKEN_MIN first tokens equal
+    to a one-shot generate's, and every token within the teacher-forced
+    gap gate (see SERVE_GAP_FACTOR)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aki_torch.infer.engine import decode_step, generate, prefill
+    from aki_torch.infer.server import ServingEngine
+
+    eng = ServingEngine(model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                        prompt_bucket=SERVE_BUCKET, admit_batch=SERVE_SLOTS,
+                        admit_policy="batched", decode_chunk=8, kv_int8=True,
+                        image_uint8=True, compact_tail=True, upload_chunk=16)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        traffic = serving_prompts(cfg, SERVE_REQUESTS)
+        eng.dispatch_log.clear()
+        eng.decode_dispatches = 0
+        zero_int8_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            reqs = [eng.submit(ids, px, max_new_tokens=m) for ids, px, m in traffic]
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            drain_s = time.perf_counter() - t0
+        counts = int8_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        results = [r.result(timeout=60) for r in reqs]
+        t_parse = time.perf_counter()
+        busy = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
+                busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy_ms = sum(busy.values())
+        parse_s = time.perf_counter() - t_parse
+        n_prefill = sum(1 for kind, _, _ in eng.dispatch_log if kind == "prefill")
+        n_dec = cfg.phi3.num_layers
+        want = {"ln": 2 * cfg.siglip.num_layers * n_prefill,
+                "gelu": cfg.siglip.num_layers * n_prefill, "rms": 2 * n_dec * n_prefill,
+                "silu": n_dec * n_prefill, "decode": n_dec * 8 * eng.decode_dispatches,
+                "flash_fwd": 0}
+        n_tokens = sum(m for _, _, m in traffic)
+        share = lambda name: sum(v_ for k_, v_ in busy.items() if name in k_)  # noqa: E731
+        rec = dict(requests=SERVE_REQUESTS, warmup_s=warm_s, drain_s=drain_s,
+                   requests_per_s=SERVE_REQUESTS / drain_s, tokens=n_tokens,
+                   tokens_per_s=n_tokens / drain_s, device_busy_ms=busy_ms,
+                   idle_share=1 - busy_ms / (drain_s * 1e3), peak_bytes=peak,
+                   prefill_dispatches=n_prefill, decode_dispatches=eng.decode_dispatches,
+                   launches=counts, decode_kernel_ms=share("decode_attention_kernel"),
+                   fused_quant_kernel_ms=share("fused_quant_kernel"),
+                   profile_parse_s=parse_s,
+                   top=sorted(((k_[:60], v_) for k_, v_ in busy.items()),
+                              key=lambda kv: -kv[1])[:6])
+        log("serve drain: " + " ".join(f"{k_}={v_}" for k_, v_ in rec.items()))
+        bad = [i for i, (res, (_, _, m)) in enumerate(zip(results, traffic)) if len(res) != m]
+        if bad:
+            raise SystemExit(f"chip_smoke: requests {bad} did not complete with their budget")
+        if counts != want:
+            raise SystemExit(f"chip_smoke: drain launches {counts}, want {want}")
+        # the server's tokens against the one-shot path of the same request:
+        # the drift of its logits in a batched prefill of the checked
+        # requests (padded to the bucket, as the server admits them), a
+        # one-shot generate, and the one-shot path fed the served tokens
+        n = SERVE_FIRST_TOKEN_CHECKS
+        imgs = torch.stack([torch.from_numpy(px) for _, px, _ in traffic[:n]]).cuda()
+        imgs = imgs.float() / 127.5 - 1.0
+        ids_b = torch.full((n, SERVE_BUCKET), cfg.pad_token_id, dtype=torch.int32)
+        valid_b = torch.zeros_like(ids_b)
+        for i, (ids, _, _) in enumerate(traffic[:n]):
+            ids_b[i, :len(ids)] = torch.tensor(ids)
+            valid_b[i, :len(ids)] = 1
+        batched = prefill(model, ids_b, imgs, valid_b, SERVE_MAX_LEN, kv_int8=True).last_logits
+        checks = []
+        for i, (ids, _, m) in enumerate(traffic[:n]):
+            ids_t = torch.tensor([ids], dtype=torch.int32)
+            args = (ids_t, imgs[i:i + 1], torch.ones_like(ids_t))
+            state = prefill(model, *args, SERVE_MAX_LEN, kv_int8=True)
+            drift = logit_drift(batched[i], state.last_logits[0])
+            one, _ = generate(model, *args, m, SERVE_MAX_LEN, kv_int8=True)
+            one = one[0].tolist()
+            served = results[i]
+            # teacher forcing: at each position, the one-shot's logits given
+            # the served tokens before it
+            gaps, margins = [], []
+            for pos, tok in enumerate(served):
+                o = state.last_logits[0]
+                top2, sd = o.topk(2).values, o.std()
+                gaps.append(((top2[0] - o[tok]) / sd).item())
+                margins.append(((top2[0] - top2[1]) / sd).item())
+                if pos + 1 < len(served):
+                    state = decode_step(model, state, torch.tensor([tok], device="cuda"))
+            del state
+            first_diff = next((j for j, (x, y) in enumerate(zip(one, served)) if x != y), None)
+            checks.append(dict(
+                request=i, budget=m, first_equal=one[0] == served[0],
+                later_equal=sum(x == y for x, y in zip(one[1:], served[1:])), later=m - 1,
+                first_difference=first_diff, batched_drift=drift,
+                top2_margin_over_std=margins[0],
+                margin_at_first_difference=None if first_diff is None else margins[first_diff],
+                served_equal_argmax=sum(g == 0.0 for g in gaps), max_gap_over_std=max(gaps),
+                gap_at=gaps.index(max(gaps))))
+        rec["one_shot_checks"] = checks
+        n_equal = sum(c["first_equal"] for c in checks)
+        delta = max(c["batched_drift"][1] for c in checks)
+        gap_max = SERVE_GAP_FACTOR * delta
+        rec["one_shot_gate"] = dict(first_equal=n_equal, delta_over_std=delta,
+                                    gap_max_over_std=gap_max)
+        log(f"serve drain vs one-shot: first tokens equal to generate's {n_equal} of {n} (min "
+            f"{SERVE_FIRST_TOKEN_MIN}); teacher-forced, the one-shot's best logit leads each "
+            f"served token by at most {max(c['max_gap_over_std'] for c in checks):.4g} std "
+            f"(max {SERVE_GAP_FACTOR} x delta {delta:.4g} = {gap_max:.4g}): {checks}")
+        if n_equal < SERVE_FIRST_TOKEN_MIN:
+            raise SystemExit("chip_smoke: served first tokens differ from one-shot generate")
+        if any(c["max_gap_over_std"] > gap_max for c in checks):
+            raise SystemExit("chip_smoke: a served token trails the one-shot path's best logit "
+                             "by more than batching can move it")
+        return rec
+    finally:
+        eng.close()
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -772,8 +1296,11 @@ def main() -> int:
     if cos < COSINE_MIN or not same or 1 - cos_k32 > 2 * (1 - cos_p32) + 1e-4:
         raise SystemExit("chip_smoke: prefill logits with the kernel differ from plain")
 
-    # 6.-8. training: free the inference model first
+    # 6.-8. training: free the inference model first; phase 11 serves the
+    # same two requests
     del model, with_kernel, plain, f32, state
+    int8_prompts = [{k: r[k] for k in ("name", "ids", "image", "valid", "max_len", "t_full")}
+                    for r in requests]
     for r in requests:
         r.clear()
     free_cuda()
@@ -810,6 +1337,57 @@ def main() -> int:
     grads = whole_model_grads(cfg, batches[0])
     free_cuda()
     train = train_full_width(cfg, batches, t_full)
+    free_cuda()
+
+    # 9. the fused quantize kernels at the W8A8 serving prefill's shapes, at
+    # the one-request prefills of phase 11 (the spliced lengths of requests a
+    # and b through the decoder, one image through the tower), and on fewer
+    # rows than the a8 gate (64) lets through, all with edge rows
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows_dec = SERVE_SLOTS * (SERVE_BUCKET + n_vis - 1)
+    rows_tower = SERVE_SLOTS * sg.num_patches
+    one_dec = [r["t_full"] for r in int8_prompts]
+    fq_cases = {}
+    for op, rows, d, path_rows in (
+            ("rms", rows_dec, ph.hidden_size, one_dec),
+            ("silu", rows_dec, ph.intermediate_size, one_dec),
+            ("ln", rows_tower, sg.hidden_size, [sg.num_patches]),
+            ("gelu", rows_tower, (sg.intermediate_size + 127) // 128 * 128, [sg.num_patches])):
+        fq_cases[op] = [fused_quant_case(op, rows, d, gen, edge=True, timed=True),
+                        *(fused_quant_case(op, n, d, gen, edge=True) for n in path_rows),
+                        fused_quant_case(op, 5, d, gen, edge=True)]
+        free_cuda()
+
+    # 10. the int8-KV decode kernel at the serving cache
+    ragged = [1, 63, 64, 65, 255, 511, 655, 704] * (SERVE_SLOTS // 8)
+    dec_cases = [decode_case("serving", ph.num_layers, SERVE_SLOTS, SERVE_MAX_LEN, ph.num_heads,
+                             ph.num_kv_heads, ph.head_dim, ragged, (0, ph.num_layers - 1), gen,
+                             timed=True)]
+    free_cuda()
+    dec_cases.append(decode_case("serving_live_width", ph.num_layers, SERVE_SLOTS,
+                                 SERVE_MAX_LEN, ph.num_heads, ph.num_kv_heads, ph.head_dim,
+                                 ragged, (ph.num_layers - 1,), gen, live_width=SERVE_SLOTS // 2))
+    free_cuda()
+    dec_cases.append(decode_case("gqa_h32_hkv8", 2, 4, 300, 32, 8, ph.head_dim,
+                                 [1, 100, 300, 0], (0, 1), gen))
+    free_cuda()
+    # and at phase 11's one-request caches, at the first and the last decode
+    # step's lengths (the spliced prompt plus 1 and plus NEW_TOKENS)
+    for r in int8_prompts:
+        for n in (r["t_full"] + 1, r["t_full"] + NEW_TOKENS):
+            dec_cases.append(decode_case(
+                f"generate_{r['name']}_len{n}", ph.num_layers, 1, r["max_len"], ph.num_heads,
+                ph.num_kv_heads, ph.head_dim, [n], (0, ph.num_layers - 1), gen,
+                timed=r is int8_prompts[-1] and n > r["t_full"] + 1))
+            free_cuda()
+
+    # 11. int8 generation at full width and depth; 12. the serving engine
+    model_q, int8_gen = int8_generation(cfg, int8_prompts)
+    free_cuda()
+    attn_times = prefill_attention_times(cfg, gen)
+    serve = serve_drain(cfg, model_q)
+    del model_q
+    free_cuda()
 
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
@@ -851,6 +1429,40 @@ def main() -> int:
     } for kn in ("dq", "dkv")],
         "backward_cases": bwd, "whole_model": grads,
         "train": {k: train[k] for k in ("steps", "peak_bytes", "tokens_per_step")}}
+    int8_runs = [r["launches"] for r in int8_gen["requests"]] + [serve["launches"]]
+    k4 = dec_cases[0]
+    k4_one = next(c for c in dec_cases[1:] if "ragged" in c)
+    record["kernels"] += [{
+        "name": "decode_attention", "route": "cuda",
+        "source": "aki_torch/csrc/decode_attention.cu", "replaces": K4_REPLACES,
+        "launches": sum(c["decode"] for c in int8_runs),
+        "launches_by_path": {"int8_generate": sum(r["launches"]["decode"]
+                                                  for r in int8_gen["requests"]),
+                             "serve": serve["launches"]["decode"]},
+        "max_abs_err": max(c["max_abs_err"] for c in dec_cases),
+        **{k: k4["full"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": "serving cache 32x48x704x3072, all rows at 704 keys", "ragged": k4["ragged"],
+        "one_row": {"name": k4_one["name"], "cache": k4_one["cache"],
+                    "lengths": k4_one["lengths"], "at_length": k4_one["ragged"],
+                    "all_slots": k4_one["full"]},
+        "library_note": "no single PyTorch call attends over an int8 cache with "
+                        "per-(token, head) scales",
+        "cases": dec_cases,
+    }] + [{
+        "name": f"fused_quant_{op}", "route": "cuda", "source": "aki_torch/csrc/fused_quant.cu",
+        "replaces": FUSED_QUANT_REPLACES[op],
+        "launches": sum(c[op] for c in int8_runs),
+        "launches_by_path": {"int8_generate": sum(r["launches"][op]
+                                                  for r in int8_gen["requests"]),
+                             "serve": serve["launches"][op]},
+        "max_abs_err": max(c["max_abs_err"] for c in fq_cases[op]),
+        **{k: fq_cases[op][0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")},
+        "shape": f"{fq_cases[op][0]['rows']}x{fq_cases[op][0]['d']}",
+        "library_note": "no single PyTorch call computes the op and the per-row int8 quantize",
+        "cases": fq_cases[op],
+    } for op in FUSED_QUANT_REPLACES]
+    record.update(int8_generate=int8_gen, prefill_attention=attn_times, serve=serve)
     log(json.dumps(record))
     log(f"elapsed_seconds={time.perf_counter() - t_start:.1f}")
     log(card)

@@ -21,7 +21,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_port_imports_neither_jax_nor_aki_tpu():
     modules = sorted(m.name for m in pkgutil.walk_packages(aki_torch.__path__, "aki_torch."))
-    assert "aki_torch.ops.flash_mma" in modules and "aki_torch.infer.engine" in modules
+    assert {"aki_torch.ops.flash_mma", "aki_torch.infer.engine", "aki_torch.infer.server",
+            "aki_torch.models.quant", "aki_torch.ops.fused_quant",
+            "aki_torch.ops.decode_attention"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -58,3 +60,7 @@ def test_entry_points_raise_without_a_card():
         engine.generate(model, ids, images, np.ones_like(ids), 2, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.prefill(model, ids, images, np.ones_like(ids), 16)
+    from aki_torch.infer.server import ServingEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model)
