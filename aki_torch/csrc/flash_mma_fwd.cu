@@ -4,7 +4,16 @@
 //   _kernel_1kv (line 175): the whole KV sequence in one tile (S <= 1024);
 //   _kernel     (line 79):  FA2 online softmax over several KV tiles.
 // They differ only in the trip count of the KV loop, so one kernel with a
-// KV loop inside the block covers both.
+// KV loop inside the block covers both. A third entry point,
+// flash_mma_fwd_flat, replaces
+//   _kernel_1kv_flat (line 246): the same math over the flat padded-head
+//   layout (B, T, H*128), real head dims in the low lanes, zeros in the
+//   pad lanes.
+// On the TPU that kernel existed because Mosaic slices heads only at 128
+// lanes; here the flat tensor in memory IS the contiguous (B, T, H, 128)
+// tensor, so it is this kernel at head width 128: zero pad lanes add
+// nothing to q.k, P.V is written over every lane (as the TPU kernel writes
+// it), and the softmax scale of the REAL head dim is passed in.
 //
 // What it computes, per (b, h, query row q):
 //   allowed(q, k) = k < S && kv_valid[b, k] &&
@@ -48,6 +57,11 @@
 // 64-row tiles that give only ~100-550 blocks. The design keeps the score
 // matrix and the mask out of device memory and skips masked-out tiles;
 // cp.async/TMA pipelining, ldmatrix and wgmma are the next steps.
+// The flat instance (width 128) at the serving admission shape (48 rows of
+// 655 tokens, 32 heads) must move ~1 GB, pad lanes included: ~0.3 ms at
+// 3.35 TB/s, so there the bytes are the bound; its 64-register f32
+// accumulator and 52.7 KB of shared memory (set above the 48 KB default at
+// launch) cost occupancy, not correctness.
 //
 // Plain C interface (bound with ctypes); launches on the caller's stream,
 // never synchronises, allocates nothing, and returns cudaGetLastError().
@@ -364,4 +378,21 @@ extern "C" int flash_mma_fwd(const void* q, const void* k, const void* v, void* 
 #undef AKI_CASE
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K6: q/k/v/o (B, T, H*128) contiguous bf16 (the flat padded-head layout),
+// H % Hkv == 0, the rest as flash_mma_fwd; scale_log2 from the real head
+// dim. Inference only: no lse.
+extern "C" int flash_mma_fwd_flat(const void* q, const void* k, const void* v, void* o,
+                                  const void* kv_valid, const void* q_offset,
+                                  const void* img_start, const void* txt_start,
+                                  const void* txt_end, int n_img, int B, int T, int S,
+                                  int H, int Hkv, int causal, float scale_log2,
+                                  void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || n_img < 0 || n_img > kMaxImages || B <= 0 || T <= 0 ||
+      S <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch<128>(q, k, v, o, nullptr, kv_valid, q_offset, img_start, txt_start,
+                     txt_end, n_img, B, T, S, H, Hkv, 128, causal, scale_log2,
+                     static_cast<cudaStream_t>(stream));
 }

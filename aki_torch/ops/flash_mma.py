@@ -17,6 +17,13 @@ query row (decode) goes to :func:`dense_attention`, as in the JAX package.
 The mask contract is the one of :mod:`aki_torch.ops.masks`; in non-causal
 mode (the vision tower) only ``kv_valid`` masks keys. The kernels' argument
 contract is :mod:`aki_torch.ops.flash_mma_args`.
+
+:func:`flash_mma_attention_flat` is the same forward over the flat
+padded-head layout ``(B, T, H*128)`` (counterpart of
+``flash_mma_attention_flat``, whose TPU kernel is ``_kernel_1kv_flat``): on
+CUDA tensors it launches the forward kernel's width-128 instance and counts
+``flash_mma_attention_flat.launches``; on CPU tensors it runs
+:func:`flash_mma_attention_flat_reference`. Inference only, as in JAX.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import torch
 
 from . import cuda_build
 from .attention import dense_attention
-from .flash_mma_args import LOG2E, check_kernel_inputs, kernel_mask_args
+from .flash_mma_args import (FLAT_HEAD_DIMS, LOG2E, ONE_TILE, check_kernel_inputs,
+                             kernel_mask_args)
 from .flash_mma_bwd import flash_mma_backward_reference, flash_mma_lse_reference, run_backward
 from .masks import MMASpec
 
@@ -59,6 +67,8 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_mma_fwd.argtypes = [p] * 10 + [i] * 8 + [ctypes.c_float, p]
         lib.flash_mma_fwd.restype = i
+        lib.flash_mma_fwd_flat.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, p]
+        lib.flash_mma_fwd_flat.restype = i
         lib.flash_mma_error_string.argtypes = [i]
         lib.flash_mma_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -160,3 +170,91 @@ def flash_mma_attention(
 
 
 flash_mma_attention.launches = 0
+
+
+def _flat_heads(q, k, v, num_heads: int) -> int:
+    """The padded head width DP of the flat layout; raises as JAX does."""
+    b, t, f = q.shape
+    dp = f // num_heads
+    if dp * num_heads != f or dp % 128:
+        raise ValueError(f"flat layout needs 128-multiple padded heads; "
+                         f"got last dim {f} for {num_heads} heads")
+    if k.dim() != 3 or k.shape != v.shape or k.shape[0] != b or k.shape[2] != f:
+        raise ValueError(f"flat layout: k, v (B,S,{f}) expected, got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if -(-k.shape[1] // 128) * 128 > ONE_TILE or t > ONE_TILE:
+        raise ValueError("flat path is single-KV-tile; sequence too long")
+    return dp
+
+
+def flash_mma_attention_flat_reference(q, k, v, num_heads, head_dim, spec=None,
+                                       kv_valid=None, q_offset=0, causal=True, scale=None):
+    """Plain version of :func:`flash_mma_attention_flat`: the plain forward
+    over the ``(B, T, H, DP)`` view, with the real head dim's scale."""
+    b, t, f = q.shape
+    dp = f // num_heads
+    view = lambda x: x.reshape(b, x.shape[1], num_heads, dp)  # noqa: E731
+    out = flash_mma_attention_reference(
+        view(q), view(k), view(v), spec=spec, kv_valid=kv_valid, q_offset=q_offset,
+        causal=causal, scale=head_dim ** -0.5 if scale is None else scale)
+    return out.reshape(b, t, f)
+
+
+def flash_mma_attention_flat(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    spec: MMASpec | None = None,
+    kv_valid: torch.Tensor | None = None,
+    q_offset: torch.Tensor | int = 0,
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Flash MMA attention over the flat padded-head layout.
+
+    q, k, v (B, T|S, H*DP), DP a multiple of 128, the real head dims in the
+    low lanes of each DP block and zeros in the pad lanes; ``head_dim`` is
+    the REAL head dim (the scale is ``head_dim**-0.5``). T and S rounded up
+    to 128 at most 1024, else ``ValueError``. Other arguments as
+    :func:`flash_mma_attention`. Returns (B, T, H*DP) in q's dtype; P.V is
+    written over the pad lanes too (zero where V's pad lanes are zero).
+
+    CUDA tensors (bf16, DP 128) launch the kernel, a single query row
+    included, and nothing else; CPU tensors take the plain version. Not
+    differentiable: inference only.
+    """
+    dp = _flat_heads(q, k, v, num_heads)
+    if scale is None:
+        scale = head_dim ** -0.5
+    if q.device.type == "cpu":
+        return flash_mma_attention_flat_reference(q, k, v, num_heads, head_dim, spec,
+                                                  kv_valid, q_offset, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mma_flat: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_mma_flat: inference only, the kernel has no backward")
+    b, t, _ = q.shape
+    s = k.shape[1]
+    check_kernel_inputs("flash_mma_flat", q.view(b, t, num_heads, dp),
+                        k.view(b, s, num_heads, dp), v.view(b, s, num_heads, dp),
+                        head_dims=FLAT_HEAD_DIMS)
+    valid, offset, coords, n_img = kernel_mask_args(spec, kv_valid, q_offset, b, s, q.device)
+    out = torch.empty_like(q)
+    lib = _kernel_lib()
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(q.device):
+        rc = lib.flash_mma_fwd_flat(
+            ptr(q), ptr(k), ptr(v), ptr(out), ptr(valid), ptr(offset),
+            *(ptr(c) for c in coords), n_img, b, t, s, num_heads, num_heads, int(causal),
+            float(scale) * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError("flash_mma_fwd_flat launch failed: "
+                           + lib.flash_mma_error_string(rc).decode())
+    flash_mma_attention_flat.launches += 1
+    return out
+
+
+flash_mma_attention_flat.launches = 0

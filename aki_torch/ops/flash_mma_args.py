@@ -10,6 +10,8 @@ import torch
 LOG2E = 1.4426950408889634
 MAX_IMAGES = 16                 # kMaxImages of the kernels
 HEAD_DIMS = (72, 80, 88, 96)    # padded to the kernels' two widths, 80 and 96
+FLAT_HEAD_DIMS = (128,)         # the forward's flat padded-head instance only
+ONE_TILE = 1024                 # the single-tile TPU kernels' longest sequence (K6, K7)
 
 
 def int32_rows(x, shape, device) -> torch.Tensor:
@@ -36,10 +38,10 @@ def kernel_mask_args(spec, kv_valid, q_offset, b, s, device):
 
 
 def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *more: tuple[str, torch.Tensor]) -> None:
+                        *more: tuple[str, torch.Tensor], head_dims=HEAD_DIMS) -> None:
     """Raise on anything the kernels do not take: q (B,T,H,D), k and v
     (B,S,Hkv,D), all bf16, contiguous and 16-byte aligned on one CUDA
-    device, D in ``HEAD_DIMS``; ``more`` are further (name, tensor) of q's
+    device, D in ``head_dims``; ``more`` are further (name, tensor) of q's
     shape."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: q (B,T,H,D) and k, v (B,S,Hkv,D) expected, got "
@@ -48,8 +50,8 @@ def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
     s, hkv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
         raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: the kernel takes head dims {HEAD_DIMS}, got {d}")
+    if d not in head_dims:
+        raise ValueError(f"{name}: the kernel takes head dims {head_dims}, got {d}")
     if b == 0 or t == 0 or s == 0:
         raise ValueError(f"{name}: empty batch, query or key sequence")
     if q.device.type != "cuda":

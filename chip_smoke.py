@@ -52,7 +52,18 @@ Phases, each fatal on failure:
      of 8, W8A8, int8 KV, uint8 images, tail compaction, uploads of 16)
      draining 96 requests, the tokens of the first 8 held to the one-shot
      path (teacher-forced); the bf16-probability prefill attentions timed
-     against the flash kernel at the serving prefill shapes.
+     against the flash kernel at the serving prefill shapes;
+ 13. the two kernels no path of the package runs, through their wrappers at
+     AKI-4B widths: the flat padded-head forward (K6) at the serving
+     admission (48 rows of 655 decoder tokens, 32 heads x 128, MMA, ragged),
+     at the tower (48 x 729, 16 x 128, non-causal) and on edge cases, held
+     to its plain version and, on its real lanes, to the standard forward
+     on the unpadded tensors; the int8-operand forward (K7) at the same two
+     shapes, at request (a) and on edge cases, held to its plain version and
+     to f32 attention, with its routes to the bf16 forward (GQA, 1043
+     tokens) counted; times beside the bound, K1 and the bf16-P attention;
+     and how far K6 and K1 sit from a plain version that folds the scale
+     into q in bf16, as the JAX wrappers do.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -141,7 +152,8 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BUCKET, SERVE_REQUESTS = 48, 704, 512, 96
 # 2 delta. A wrong cache, position or slot gives a token drawn from the
 # wrong context, several std below the best.
 SERVE_FIRST_TOKEN_CHECKS, SERVE_FIRST_TOKEN_MIN, SERVE_GAP_FACTOR = 8, 4, 2.0
-KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd", "fused_quant", "decode_attention")
+KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd", "fused_quant", "decode_attention",
+                  "flash_mma_q8")
 TRAIN_TEXT = 512          # text tokens per training row; one <image> -> 144
 
 
@@ -293,22 +305,41 @@ def forward_gates(label, got, q, k, v, kw, exact=None, zero_rows=None) -> dict:
                 plain_mean_abs_err_vs_f32=plain_vs_f32)
 
 
+def case_inputs(b, t, s, h, hkv, d, gen, rects=None):
+    """Seeded bf16 q (B,T,H,D), k, v (B,S,Hkv,D) on the card, and the MMA
+    spec of ``rects`` ((img_start, txt_start, txt_end) per image, the same
+    for every batch row) or None."""
+    from aki_torch.ops.masks import MMASpec
+
+    q = torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    spec = None
+    if rects is not None:
+        spec = MMASpec(*(torch.tensor([[r[i] for r in rects]] * b, dtype=torch.int32,
+                                      device="cuda") for i in range(3)))
+    return q, k, v, spec
+
+
+def case_allowed(b, t, s, spec, kv_valid, causal, q_offset=0):
+    """The (B, T, S) pairs the mask allows, None for all of them."""
+    from aki_torch.ops.masks import allowed_mask, causal_spec
+
+    if causal:
+        return allowed_mask(spec or causal_spec(b, "cuda"), t, s, kv_valid, q_offset)
+    if kv_valid is not None:
+        return (kv_valid[:, None, :] != 0).expand(b, t, s)
+    return None
+
+
 def kernel_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None,
                 kv_valid=None, q_offset=0, timed=False, zero_rows=None):
     """One kernel-vs-plain comparison on the card; returns its record.
     ``zero_rows`` = (batch row, query rows) that must come out exactly 0."""
     from aki_torch.ops.flash_mma import (flash_mma_attention,
                                          flash_mma_attention_reference)
-    from aki_torch.ops.masks import MMASpec, allowed_mask, causal_spec
 
-    dev = "cuda"
-    q = torch.randn(b, t, h, d, device=dev, generator=gen).to(torch.bfloat16)
-    k = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(torch.bfloat16)
-    v = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(torch.bfloat16)
-    spec = None
-    if rects is not None:
-        spec = MMASpec(*(torch.tensor([[r[i] for r in rects]] * b, dtype=torch.int32,
-                                      device=dev) for i in range(3)))
+    q, k, v, spec = case_inputs(b, t, s, h, hkv, d, gen, rects)
     kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
 
     got = flash_mma_attention(q, k, v, **kw)
@@ -317,11 +348,7 @@ def kernel_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None,
                **forward_gates(f"kernel {name}", got, q, k, v, kw, zero_rows=zero_rows))
 
     if timed:
-        allowed = None
-        if causal:
-            allowed = allowed_mask(spec or causal_spec(b, dev), t, s, kv_valid, q_offset)
-        elif kv_valid is not None:
-            allowed = (kv_valid[:, None, :] != 0).expand(b, t, s)
+        allowed = case_allowed(b, t, s, spec, kv_valid, causal, q_offset)
         flops, nbytes = allowed_work(b, t, s, h, hkv, d, allowed, kv_valid is not None)
         t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
         # the library yardstick: one SDPA call with the same boolean mask
@@ -1154,6 +1181,287 @@ def serve_drain(cfg, model) -> dict:
         eng.close()
 
 
+K6_REPLACES = ("aki_tpu/ops/flash_mma.py:246 (_kernel_1kv_flat; wrapper "
+               "flash_mma_attention_flat :301, pallas_call :363)")
+K7_REPLACES = ("aki_tpu/ops/flash_mma.py:393 (_kernel_1kv_q8; wrapper "
+               "flash_mma_attention_q8 :468, pallas_call :538)")
+FLAT_DP = 128
+
+
+def pad_heads(x: torch.Tensor, rope_halves: bool) -> torch.Tensor:
+    """(B, T, H, D) -> the flat padded-head layout (B, T, H*128): q and k
+    with their rope halves at lanes [0, D/2) and [64, 64 + D/2) of each
+    head (the serving layout of quant.py:pad_attention_heads), v at [0, D);
+    zeros elsewhere."""
+    b, t, h, d = x.shape
+    out = x.new_zeros(b, t, h, FLAT_DP)
+    if rope_halves:
+        out[..., :d // 2] = x[..., :d // 2]
+        out[..., FLAT_DP // 2:FLAT_DP // 2 + d // 2] = x[..., d // 2:]
+    else:
+        out[..., :d] = x
+    return out.reshape(b, t, h * FLAT_DP)
+
+
+def serving_lengths(cfg) -> list[int]:
+    """Spliced lengths of one admission of the drain's prompts (phase 12's
+    draw): 48 rows of 256-511 text tokens plus 143."""
+    return [len(ids) + cfg.perceiver.num_latents - 1
+            for ids, _, _ in serving_prompts(cfg, SERVE_SLOTS)]
+
+
+def scale_fold_gap(label, got, q, k, v, kw, scale) -> dict:
+    """How far a forward kernel's bf16 output sits from the plain forward
+    with the softmax scale applied to the f32 scores (the port's kernels)
+    and from one that folds bf16(scale*log2(e)) into q rounded to bf16, as
+    the JAX wrappers do (flash_mma.py:346, :653); beside each, the mean
+    |error| of both plain versions and the kernel against f32 attention."""
+    from aki_torch.ops.flash_mma import flash_mma_attention_reference as ref
+    from aki_torch.ops.flash_mma_args import LOG2E
+
+    qs = q * torch.tensor(scale * LOG2E, dtype=torch.bfloat16, device=q.device)
+    f32_scale = ref(q, k, v, **kw, scale=scale).float()
+    jax_fold = ref(qs, k, v, **kw, scale=math.log(2.0)).float()
+    exact = ref(q.float(), k.float(), v.float(), **kw, scale=scale)
+    got = got.float()
+    rec = {"max_abs_vs_f32_scale_plain": (got - f32_scale).abs().max().item(),
+           "max_abs_vs_jax_fold_plain": (got - jax_fold).abs().max().item(),
+           "mean_abs_vs_f32_scale_plain": (got - f32_scale).abs().mean().item(),
+           "mean_abs_vs_jax_fold_plain": (got - jax_fold).abs().mean().item(),
+           "plain_f32_scale_vs_jax_fold_max": (f32_scale - jax_fold).abs().max().item(),
+           "mean_err_vs_f32": {"kernel": (got - exact).abs().mean().item(),
+                               "f32_scale_plain": (f32_scale - exact).abs().mean().item(),
+                               "jax_fold_plain": (jax_fold - exact).abs().mean().item()}}
+    log(f"scale fold {label}: {rec}")
+    return rec
+
+
+def flat_case(name, b, t, s, h, d, gen, causal=True, rects=None, lens=None, timed=False,
+              zero_rows=None, scale_fold=False) -> dict:
+    """K6 on the flat layout against its plain version (forward_gates on the
+    (B,T,H,128) view), its pad lanes exactly 0 where V's are, and its real
+    lanes against K1 on the unpadded tensors under the same element-wise
+    gate. Returns the record, with the launches of its one counted call."""
+    from aki_torch.ops.flash_mma import flash_mma_attention_flat, flash_mma_forward
+
+    q, k, v, spec = case_inputs(b, t, s, h, h, d, gen, rects)
+    kv_valid = None if lens is None else prefix_valid(lens, s)
+    qf, kf, vf = pad_heads(q, True), pad_heads(k, True), pad_heads(v, False)
+    kw = dict(spec=spec, kv_valid=kv_valid, causal=causal)
+    n0 = flash_mma_attention_flat.launches
+    got = flash_mma_attention_flat(qf, kf, vf, h, d, **kw)
+    launched = flash_mma_attention_flat.launches - n0
+    torch.cuda.synchronize()
+    view = lambda x: x.view(b, x.shape[1], h, FLAT_DP)  # noqa: E731
+    rec = dict(name=name, shape=[b, t, s, h, FLAT_DP], head_dim=d, causal=causal,
+               launches=launched,
+               **forward_gates(f"K6 {name}", view(got), view(qf), view(kf), view(vf),
+                               dict(kw, scale=d ** -0.5), zero_rows=zero_rows))
+    k1 = flash_mma_forward(q, k, v, spec, kv_valid, 0, causal)[0]
+    real = view(got)[..., :d].float()
+    rec["max_abs_vs_k1"] = (real - k1.float()).abs().max().item()
+    pad_zero = bool((view(got)[..., d:] == 0).all())
+    ok = (launched == 1 and pad_zero
+          and bool(((real - k1.float()).abs() <= ATOL + RTOL * k1.float().abs()).all()))
+    log(f"  K6 {name}: launches={launched} pad_lanes_zero={pad_zero} "
+        f"max|real lanes - K1 unpadded|={rec['max_abs_vs_k1']:.6g} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: K6 {name} failed")
+    if scale_fold:
+        rec["scale_fold"] = scale_fold_gap(f"K6 {name}", view(got), view(qf), view(kf),
+                                           view(vf), kw, d ** -0.5)
+    if timed:
+        from aki_torch.ops.flash_mma import flash_mma_attention_flat_reference
+
+        allowed = case_allowed(b, t, s, spec, kv_valid, causal)
+        flops, nbytes = allowed_work(b, t, s, h, h, FLAT_DP, allowed, kv_valid is not None)
+        t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        qt, kt, vt = (view(x).transpose(1, 2) for x in (qf, kf, vf))
+        mask = None if allowed is None else allowed[:, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rec.update(
+            ms=cuda_ms(lambda: flash_mma_attention_flat(qf, kf, vf, h, d, **kw)),
+            plain_ms=cuda_ms(lambda: flash_mma_attention_flat_reference(qf, kf, vf, h, d, **kw)),
+            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=d ** -0.5)),
+            k1_unpadded_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, spec, kv_valid, 0,
+                                                             causal)),
+            bound_ms=max(t_flops, t_bytes),
+            bound_by="operations" if t_flops >= t_bytes else "bytes",
+            bound_flops=flops, bound_bytes=nbytes)
+        for key in ("ms", "plain_ms", "library_ms", "k1_unpadded_ms", "bound_ms", "bound_by"):
+            log(f"  K6 {name} {key}={rec[key]}")
+    return rec
+
+
+# K7 against its plain version on the same int8 operands and scales: the
+# scores agree bit for bit (int32 exact, then the same f32 products); the
+# two differ in f32 summation order and exp2's last bit, which can flip one
+# bf16 rounding of a p * sv term. Gates: max |kernel - plain| <= Q8_REL *
+# max|plain|; against f32 attention on the unquantized inputs the kernel's
+# largest error within Q8_F32_RATIO of the plain version's; both within the
+# JAX package's own gate for this kernel, Q8_JAX_GATE * max|ref|
+# (tests/test_tpu_kernels.py:272).
+Q8_REL, Q8_F32_RATIO, Q8_JAX_GATE = 2.0 ** -7, 1.1, 0.05
+PEAK_INT8_OPS = 1979e12        # dense int8 tensor cores
+
+
+def q8_work(b, t, s, h, d, allowed, has_valid):
+    """(int8 ops, bf16 FLOPs, bytes) that K7's function needs: 2*D int8 ops
+    (QK) and 2*D bf16 FLOPs (PV) per head and allowed pair; int8 q read and
+    bf16 out written once, int8 k and v and the f32 scales of each key some
+    row may attend (and its kv_valid) read once."""
+    if allowed is None:
+        pairs, keys = b * t * s, b * s
+    else:
+        pairs, keys = int(allowed.sum()), int(allowed.any(dim=1).sum())
+    nbytes = b * t * h * (d + 4 + 2 * d) + keys * (h * (2 * d + 8) + 4 * has_valid)
+    return 2 * d * h * pairs, 2 * d * h * pairs, nbytes
+
+
+def q8_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None, lens=None, timed=False,
+            zero_rows=None, zero_q_row=None, routed=False) -> dict:
+    """K7 through ``flash_mma_attention_q8`` against its plain version (the
+    same routing and quantize), and both against f32 attention on the
+    unquantized inputs. ``routed`` cases must launch the bf16 forward once
+    and K7 never, and are held by forward_gates. Returns the record."""
+    from aki_torch.ops.attention import decoder_attention_bf16p, encoder_attention_bf16p
+    from aki_torch.ops.flash_mma import (flash_mma_attention, flash_mma_attention_reference,
+                                         flash_mma_forward)
+    from aki_torch.ops.flash_mma_q8 import (flash_mma_attention_q8,
+                                            flash_mma_attention_q8_reference,
+                                            flash_mma_q8_forward, flash_mma_q8_plain,
+                                            quantize_operands)
+
+    q, k, v, spec = case_inputs(b, t, s, h, hkv, d, gen, rects)
+    kv_valid = None if lens is None else prefix_valid(lens, s)
+    if zero_q_row is not None:
+        q[zero_q_row] = 0
+    kw = dict(spec=spec, kv_valid=kv_valid, causal=causal)
+    n7, n1 = flash_mma_attention_q8.launches, flash_mma_attention.launches
+    got = flash_mma_attention_q8(q, k, v, **kw)
+    launched = {"q8": flash_mma_attention_q8.launches - n7,
+                "flash_fwd": flash_mma_attention.launches - n1}
+    torch.cuda.synchronize()
+    rec = dict(name=name, shape=[b, t, s, h, hkv, d], causal=causal, launches=launched)
+    want_launches = {"q8": 0, "flash_fwd": 1} if routed else {"q8": 1, "flash_fwd": 0}
+    if routed:
+        rec.update(forward_gates(f"K7 {name} (routed to the bf16 forward)", got, q, k, v, kw,
+                                 zero_rows=zero_rows))
+        ok = launched == want_launches
+    else:
+        plain = flash_mma_attention_q8_reference(q, k, v, **kw).float()
+        exact = flash_mma_attention_reference(q.float(), k.float(), v.float(), **kw)
+        diff = (got.float() - plain).abs()
+        ref_max = exact.abs().max().item()
+        err_k = (got.float() - exact).abs().max().item()
+        err_p = (plain - exact).abs().max().item()
+        rec.update(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+                   max_abs_vs_f32=err_k, plain_max_abs_vs_f32=err_p, f32_max=ref_max)
+        ok = (launched == want_launches and bool(torch.isfinite(got).all())
+              and rec["max_abs_err"] <= Q8_REL * plain.abs().max().item()
+              and err_k <= Q8_F32_RATIO * err_p + 1e-6
+              and max(err_k, err_p) <= Q8_JAX_GATE * ref_max)
+        if zero_rows is not None:
+            ok = ok and bool((got[zero_rows[0], zero_rows[1]] == 0).all())
+        log(f"K7 {name}: q={tuple(q.shape)} k={tuple(k.shape)} causal={causal} "
+            f"launches={launched} max|kernel - plain|={rec['max_abs_err']:.6g} "
+            f"(<= {Q8_REL:.6g} * max|plain|) mean={rec['mean_abs_err']:.4g}; max error vs f32 "
+            f"attention on the unquantized inputs: kernel {err_k:.6g} plain {err_p:.6g} "
+            f"(kernel <= {Q8_F32_RATIO}x plain; both <= {Q8_JAX_GATE} * {ref_max:.4g}) "
+            f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: K7 {name} failed (launches {launched}, "
+                         f"want {want_launches})")
+    if timed:
+        ops = quantize_operands(q, k, v, d ** -0.5)
+        allowed = case_allowed(b, t, s, spec, kv_valid, causal)
+        int_ops, flops, nbytes = q8_work(b, t, s, h, d, allowed, kv_valid is not None)
+        t_ops = (int_ops / PEAK_INT8_OPS + flops / PEAK_BF16_FLOPS) * 1e3
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        bf16p = ((lambda: decoder_attention_bf16p(q, k, v, **{x: kw[x] for x in
+                                                               ("spec", "kv_valid")}))
+                 if causal else (lambda: encoder_attention_bf16p(q, k, v)))
+        rec.update(
+            ms=cuda_ms(lambda: flash_mma_q8_forward(*ops, **kw)),
+            plain_ms=cuda_ms(lambda: flash_mma_q8_plain(*ops, **kw)),
+            library_ms=None,
+            wrapper_ms=cuda_ms(lambda: flash_mma_attention_q8(q, k, v, **kw)),
+            k1_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, spec, kv_valid, 0, causal)),
+            bf16p_ms=cuda_ms(bf16p),
+            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_int8_ops=int_ops, bound_bf16_flops=flops, bound_bytes=nbytes)
+        for key in ("ms", "plain_ms", "wrapper_ms", "k1_ms", "bf16p_ms", "bound_ms", "bound_by"):
+            log(f"  K7 {name} {key}={rec[key]}")
+    return rec
+
+
+def flat_and_q8(cfg, prompt_a, prompt_b) -> tuple[list, list, dict]:
+    """Phase 13: K6 and K7 through their wrappers at AKI-4B widths, each
+    wrapper's launches read around its one counted call per case; returns
+    the K6 and K7 records and the scale-fold record of K1 at request (a)'s
+    prefill."""
+    from aki_torch.ops.flash_mma import (flash_mma_attention, flash_mma_attention_flat,
+                                         flash_mma_forward)
+    from aki_torch.ops.flash_mma_q8 import flash_mma_attention_q8
+
+    flash_mma_attention_flat.launches = flash_mma_attention_q8.launches = 0
+    flash_mma_attention.launches = 0
+    ph, sg = cfg.phi3, cfg.siglip
+    n_vis = cfg.perceiver.num_latents
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, t = SERVE_SLOTS, SERVE_BUCKET + n_vis - 1
+    lens = serving_lengths(cfg)
+    serve_rect = [(1, 1 + n_vis, 40 + n_vis)]     # <image> at 1, <|assistant|> at 40
+    t_a, rect_a = request_spec(cfg, prompt_a["ids"], n_vis)
+    t_b, rect_b = request_spec(cfg, prompt_b["ids"], n_vis)
+    dec = (ph.num_heads, ph.head_dim)              # flat: H, real head dim
+    dec8 = (ph.num_heads, ph.num_heads, ph.head_dim)   # q8: H, Hkv, D
+    k6 = [flat_case("decoder_serving", b, t, t, *dec, gen, rects=serve_rect, lens=lens,
+                    timed=True, scale_fold=True)]
+    free_cuda()
+    k6.append(flat_case("tower_serving", b, sg.num_patches, sg.num_patches, sg.num_heads,
+                        sg.head_dim, gen, causal=False, timed=True))
+    free_cuda()
+    k6 += [flat_case("single_row", 2, 1, 300, *dec, gen, lens=[300, 151]),
+           flat_case("s_1024", 1, t_a, 1024, *dec, gen, rects=[rect_a], lens=[t_a]),
+           flat_case("t_37", 2, 37, 37, *dec, gen, rects=[(2, 10, 30)]),
+           flat_case("dead_row", 2, 100, 100, *dec, gen, lens=[100, 0],
+                     zero_rows=(1, slice(None)))]
+    for bad, (s_len, width) in {"s_1025": (1025, FLAT_DP), "dp_96": (64, 96)}.items():
+        x = torch.zeros(1, 16, ph.num_heads * width, dtype=torch.bfloat16, device="cuda")
+        kv = torch.zeros(1, s_len, ph.num_heads * width, dtype=torch.bfloat16, device="cuda")
+        try:
+            flash_mma_attention_flat(x, kv, kv, ph.num_heads, ph.head_dim)
+        except ValueError as e:
+            log(f"  K6 {bad}: ValueError as required ({e})")
+        else:
+            raise SystemExit(f"chip_smoke: K6 {bad} did not raise ValueError")
+
+    # K1 at request (a)'s prefill against the same two plain versions
+    q, k, v, spec = case_inputs(1, t_a, prompt_a["max_len"], *dec8, gen, [rect_a])
+    kv_valid = prefix_valid([t_a], prompt_a["max_len"])
+    kw = dict(spec=spec, kv_valid=kv_valid, causal=True)
+    k1_fold = scale_fold_gap("K1 prefill (a)", flash_mma_forward(q, k, v, **kw)[0], q, k, v,
+                             kw, dec[1] ** -0.5)
+    del q, k, v
+    free_cuda()
+
+    k7 = [q8_case("decoder_serving", b, t, t, *dec8, gen, rects=serve_rect, lens=lens,
+                  timed=True)]
+    free_cuda()
+    k7.append(q8_case("tower_serving", b, sg.num_patches, sg.num_patches, sg.num_heads,
+                      sg.num_heads, sg.head_dim, gen, causal=False, timed=True))
+    free_cuda()
+    k7 += [q8_case("request_a", 1, t_a, t_a, *dec8, gen, rects=[rect_a]),
+           q8_case("gqa_hkv8", 1, t_a, t_a, ph.num_heads, 8, ph.head_dim, gen,
+                   rects=[rect_a], routed=True),
+           q8_case(f"t_{t_b}", 1, t_b, t_b, *dec8, gen, rects=[rect_b], routed=True),
+           q8_case("zero_q_row_dead_rows", 2, 100, 100, 4, 4, ph.head_dim, gen,
+                   lens=[100, 0], zero_rows=(1, slice(None)), zero_q_row=(0, 5, 1))]
+    free_cuda()
+    return k6, k7, k1_fold
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1389,6 +1697,9 @@ def main() -> int:
     del model_q
     free_cuda()
 
+    # 13. K6 and K7 through their wrappers: no path of the package runs them
+    k6, k7, k1_fold = flat_and_q8(cfg, *int8_prompts)
+
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
     tb = bwd[0]
@@ -1462,6 +1773,27 @@ def main() -> int:
         "library_note": "no single PyTorch call computes the op and the per-row int8 quantize",
         "cases": fq_cases[op],
     } for op in FUSED_QUANT_REPLACES]
+    k6_head, k7_head = k6[0], k7[0]
+    n6 = sum(c["launches"] for c in k6)
+    n7 = sum(c["launches"]["q8"] for c in k7)
+    record["kernels"] += [{
+        "name": "flash_mma_flat", "route": "cuda", "source": "aki_torch/csrc/flash_mma_fwd.cu",
+        "replaces": K6_REPLACES, "launches": n6, "launches_by_path": {"phase13": n6},
+        "max_abs_err": max(c["max_abs_err"] for c in k6),
+        **{k: k6_head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": "decoder_serving " + "x".join(map(str, k6_head["shape"])),
+        "library_note": "SDPA with the boolean mask on the (B, H, T, 128) view",
+        "scale_fold": {"k6_decoder_serving": k6_head["scale_fold"], "k1_prefill_a": k1_fold},
+        "cases": k6,
+    }, {
+        "name": "flash_mma_q8", "route": "cuda", "source": "aki_torch/csrc/flash_mma_q8.cu",
+        "replaces": K7_REPLACES, "launches": n7, "launches_by_path": {"phase13": n7},
+        "max_abs_err": max(c["max_abs_err"] for c in k7),
+        **{k: k7_head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": "decoder_serving " + "x".join(map(str, k7_head["shape"])),
+        "library_note": "no PyTorch call attends over int8 operands with per-row scales",
+        "cases": k7,
+    }]
     record.update(int8_generate=int8_gen, prefill_attention=attn_times, serve=serve)
     log(json.dumps(record))
     log(f"elapsed_seconds={time.perf_counter() - t_start:.1f}")

@@ -23,7 +23,7 @@ def test_port_imports_neither_jax_nor_aki_tpu():
     modules = sorted(m.name for m in pkgutil.walk_packages(aki_torch.__path__, "aki_torch."))
     assert {"aki_torch.ops.flash_mma", "aki_torch.infer.engine", "aki_torch.infer.server",
             "aki_torch.models.quant", "aki_torch.ops.fused_quant",
-            "aki_torch.ops.decode_attention"} <= set(modules)
+            "aki_torch.ops.decode_attention", "aki_torch.ops.flash_mma_q8"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
