@@ -29,12 +29,11 @@
 // per score: each thread holds, for its two rows, the bitmask of images
 // whose query span holds the row, each tile the bitmask of images whose
 // text span holds each key, and a pair is in a rectangle when the two
-// masks meet (flash_mma_fwd.cu loops over the images per score instead;
-// exp_torch/mask_ab.py times the two tests there). QK runs on
-// mma.sync.m16n8k32 s8 x s8 -> s32 (exact, as the TPU's int8 MXU was) over
-// the head dim padded to 96 with zeros (72 is three k-steps too); V's int8
-// is converted to bf16 in shared memory (exact), and PV runs on
-// mma.sync.m16n8k16 bf16 with f32 accumulation, as in flash_mma_fwd.cu.
+// masks meet (flash_mma_fwd.cu uses the same test on its partial tiles).
+// QK runs on mma.sync.m16n8k32 s8 x s8 -> s32 (exact, as the TPU's int8
+// MXU was) over the head dim padded to 96 with zeros (72 is three k-steps
+// too); V's int8 is converted to bf16 in shared memory (exact), and PV runs
+// on mma.sync.m16n8k16 bf16 with f32 accumulation.
 // Only H == Hkv: the wrapper routes GQA to flash_mma_fwd, as JAX does.
 //
 // What bounds it on an H100: at the serving admission shape (48 rows of 655

@@ -28,6 +28,7 @@ CUDA tensors it launches the forward kernel's width-128 instance and counts
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -71,6 +72,10 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.flash_mma_fwd_flat.restype = i
         lib.flash_mma_error_string.argtypes = [i]
         lib.flash_mma_error_string.restype = ctypes.c_char_p
+        lib.flash_mma_count_tiles.argtypes = [p]
+        lib.flash_mma_count_tiles.restype = None
+        lib.flash_mma_fwd_block_rows.argtypes = [i] * 4
+        lib.flash_mma_fwd_block_rows.restype = i
         _lib = lib
     return _lib
 
@@ -170,6 +175,30 @@ def flash_mma_attention(
 
 
 flash_mma_attention.launches = 0
+
+
+@contextlib.contextmanager
+def count_tiles(device="cuda"):
+    """For checks: while open, every launch of the forward kernel (K1, K2,
+    K6) adds the tiles its consumer warpgroups ran, by class, to the int32
+    tensor yielded, ``[skip, full, partial]`` in the units of
+    ``flash_mma_args.tile_classes`` (64 query rows x 64 keys) summed over
+    heads, batch rows and query tiles. It costs one atomic per tile; read
+    the tensor after the launches (it is on ``device``)."""
+    counts = torch.zeros(3, dtype=torch.int32, device=device)
+    lib = _kernel_lib()
+    lib.flash_mma_count_tiles(counts.data_ptr())
+    try:
+        yield counts
+    finally:
+        lib.flash_mma_count_tiles(None)
+
+
+def forward_block_rows(b: int, t: int, h: int, d: int) -> int:
+    """The query rows per block that the forward kernel takes for ``b`` x
+    ``t`` query rows of ``h`` heads at head dim ``d`` (128: the flat entry)
+    on the current CUDA device."""
+    return _kernel_lib().flash_mma_fwd_block_rows(b, t, h, d)
 
 
 def _flat_heads(q, k, v, num_heads: int) -> int:

@@ -11,8 +11,15 @@ Phases, each fatal on failure:
   2. build: nvcc for sm_90a of the kernel sources (KERNEL_SOURCES), one nvcc
      per source, all started together;
   3. kernels: the flash forward against its plain version in bf16 at the
-     generation path's shapes and on edge cases, with times beside the bound
-     and the PyTorch library call;
+     generation path's shapes and on edge cases of its tile classes (skip,
+     full, partial: 16 images with edges at tile boundaries and one off,
+     lengths no block size divides, q_offset with T < S, GQA 32/8 with the
+     lse, dead rows, kv_valid holes inside full tiles, 192-row blocks, base-2
+     score spreads past exp2's flush at 2^-126), each with the classes it
+     ran as the kernel counts them (flash_mma.count_tiles), held to the
+     mirror flash_mma_args.tile_classes, with times beside the bound and
+     the PyTorch library call: the wrapper's and SDPA's call times (CUDA
+     events) and their device times alone (torch.profiler);
   4. generation: aki_4b() at full width (27-layer SigLIP, 6-layer Perceiver,
      32-layer Phi-3.5-mini), random bf16 weights from a seeded generator,
      32 greedy tokens for two requests (one 384x384 image + a prompt of
@@ -26,7 +33,8 @@ Phases, each fatal on failure:
      655 tokens: 512 text tokens, one <image> spliced to 144 vision tokens,
      the second row right-padded), the SigLIP non-causal shape and edge
      cases, with times beside the bound, the plain backward and SDPA's
-     backward;
+     backward, and the forward with lse timed on the device alone beside
+     SDPA's forward;
   7. whole-model gradients: aki_4b() at full width and depth (fp32 master
      weights, bf16 compute, remat) on one training batch, loss and
      gradients with the kernels against the plain attention, both against
@@ -62,8 +70,12 @@ Phases, each fatal on failure:
      shapes, at request (a) and on edge cases, held to its plain version and
      to f32 attention, with its routes to the bf16 forward (GQA, 1043
      tokens) counted; times beside the bound, K1 and the bf16-P attention;
-     and how far K6 and K1 sit from a plain version that folds the scale
-     into q in bf16, as the JAX wrappers do.
+     K1 itself at the two 48-row shapes against its plain version, timed
+     beside SDPA on the same unpadded tensors (device times over
+     SPREAD_ROUNDS rounds, each with the SM clock); K6's edge cases; the gate
+     that the forward's cases ran every tile class at each width (80, 96,
+     128); and how far K6 and K1 sit from a plain version that folds the
+     scale into q in bf16, as the JAX wrappers do.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -138,6 +150,15 @@ DRIFT_MEAN_MAX, DRIFT_MAX_MAX = 0.25, 2.0
 # prologue, then |h|, the max, the division, the rounding and the clamp)
 QUANT_OPS_PER_VALUE = {"rms": 10, "ln": 12, "silu": 11, "gelu": 16}
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BUCKET, SERVE_REQUESTS = 48, 704, 512, 96
+# The port's kernels by a part of their device name, and the launch
+# counters (launch_counts, int8_launch_counts) that count their launches
+PORT_KERNEL_COUNTERS = {"flash_mma_fwd": ("fwd",), "flash_mma_dq": ("dq",),
+                        "flash_mma_dkv": ("dkv",),
+                        "fused_quant_kernel": ("rms", "ln", "silu", "gelu"),
+                        "decode_attention_kernel": ("decode",)}
+# Rounds of the device times at phase 13's 48-row shapes (median kept, each
+# round recorded): one round moved by up to 30% between runs
+SPREAD_ROUNDS = 5
 # The server's tokens against the one-shot path on the same weights, for the
 # first 8 requests. At random weights the top two logits can sit within the
 # rounding that the server's batch changes (bf16 products of 48 rows, other
@@ -191,33 +212,52 @@ def profile_call(name: str, fn, reps: int = 3, host: bool = False) -> None:
     own host wall time and the device time of what it ran (torch.profiler
     tracing the device only, one stream: device events do not overlap);
     the call with the median idle share is printed with its five costliest
-    kernels, beside every call's idle share. ``host`` adds one more call
-    traced on the host as well, and prints its costliest host operations by
-    self time."""
+    kernels, beside every call's idle share. The port's kernels are also
+    given as launches seen of launches issued (their wrappers' counts) and
+    as the mean time of a seen launch times the launches issued: the
+    profiler can miss launches, and then the busy time is a lower bound
+    and the idle share an upper one. ``host`` adds one more call traced on
+    the host as well, and prints its costliest host operations by self
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def issued() -> dict[str, int]:
+        n = {**int8_launch_counts(), **launch_counts()}
+        return {k: sum(n[c] for c in cs) for k, cs in PORT_KERNEL_COUNTERS.items()}
 
     fn()
     torch.cuda.synchronize()
     runs = []
     for _ in range(reps):
+        before = issued()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in issued().items()}
         per_name: dict[str, float] = {}
+        seen: dict[str, int] = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                seen[e.name] = seen.get(e.name, 0) + 1
         busy_ms = sum(per_name.values())
-        runs.append((1 - busy_ms / wall_ms, wall_ms, busy_ms, per_name))
+        port = {}
+        for k, n in launched.items():
+            names = [x for x in per_name if k in x]
+            got = sum(seen[x] for x in names)
+            if n or got:
+                ms = sum(per_name[x] for x in names)
+                port[k] = (got, n, ms / got * n if got else None)
+        runs.append((1 - busy_ms / wall_ms, wall_ms, busy_ms, per_name, port))
     if any(r[2] == 0 for r in runs):
         log(f"profile {name}: wall_ms={[round(r[1], 3) for r in runs]} device time "
             f"not measured (the profiler saw no device events)")
         return
     runs.sort(key=lambda r: r[0])
-    idle, wall_ms, busy_ms, per_name = runs[len(runs) // 2]
+    idle, wall_ms, busy_ms, per_name, port = runs[len(runs) // 2]
     if host:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             fn()
@@ -225,14 +265,16 @@ def profile_call(name: str, fn, reps: int = 3, host: bool = False) -> None:
         top_host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
         log(f"profile {name} host: " + "; ".join(
             f"{e.key[:50]}={e.self_cpu_time_total / 1e3:.1f}ms x{e.count}" for e in top_host))
-    kern = {n: sum(v for k, v in per_name.items() if n in k)
-            for n in ("flash_mma_fwd", "flash_mma_dq", "flash_mma_dkv", "fused_quant_kernel",
-                      "decode_attention_kernel")}
+    kern = {n: sum(v for k, v in per_name.items() if n in k) for n in PORT_KERNEL_COUNTERS}
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"profile {name}: median of {reps} calls: wall_ms={wall_ms:.3f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={idle:.3f} "
         f"(all calls {[round(r[0], 3) for r in runs]}) "
         + " ".join(f"{n}_ms={v:.3f}" for n, v in kern.items() if v or n == "flash_mma_fwd")
+        + " port launches seen/issued, ms per seen launch x issued: "
+        + (", ".join(f"{k} {g}/{n} {'-' if ms is None else f'{ms:.3f}'}"
+                     for k, (g, n, ms) in port.items()) or "none")
+        + " (all calls: " + str([{k: v[:2] for k, v in r[4].items()} for r in runs]) + ")"
         + " top=" + "; ".join(f"{k[:60]}={v:.3f}" for k, v in top))
 
 
@@ -332,42 +374,152 @@ def case_allowed(b, t, s, spec, kv_valid, causal, q_offset=0):
     return None
 
 
+def lse_gate(lse, q, k, kw) -> tuple[float, bool]:
+    """The forward's base-2 row logsumexp against the plain one on the same
+    bf16 inputs: (largest error on the finite rows, whether it is within
+    LSE_ATOL and +inf on the same rows)."""
+    from aki_torch.ops.flash_mma_bwd import flash_mma_lse_reference
+
+    want = flash_mma_lse_reference(q, k, **kw)
+    finite = torch.isfinite(want)
+    err = (lse - want)[finite].abs().max().item() if finite.any() else 0.0
+    return err, bool((torch.isfinite(lse) == finite).all()) and err <= LSE_ATOL
+
+
+def tile_gate(label, counts, b, t, s, h, spec, kv_valid, q_offset, causal, width) -> dict:
+    """The tile classes that one forward launch ran, as the kernel counted
+    them (``counts`` from flash_mma.count_tiles: consumer warpgroups'
+    64 query rows x 64 keys, over heads, batch rows and query tiles), with
+    the padded width; fails the script unless they equal the classes of the
+    mirror flash_mma_args.tile_classes, for each of the ``h`` heads."""
+    from aki_torch.ops.flash_mma_args import TILE_CLASS_NAMES, tile_classes
+
+    ran = counts.tolist()
+    offset = torch.as_tensor(q_offset).cpu().expand(b)    # gives the mirror B rows
+    cls = tile_classes(spec if causal else None, kv_valid, offset, t, s, causal)
+    mirror = [h * n for n in torch.bincount(cls.flatten().long(), minlength=3).tolist()]
+    if ran != mirror:
+        raise SystemExit(f"chip_smoke: {label} ran tiles {ran} (skip, full, partial), "
+                         f"the mirror's classes give {mirror}")
+    return {"width": width, **dict(zip(TILE_CLASS_NAMES, ran))}
+
+
+def spread_qk(q, k, gen):
+    """q and k of q's and k's shapes whose scaled base-2 scores spread past
+    126 along each row, so that exp2 in the kernel flushes some p and alpha
+    to 0 where the plain version keeps them as subnormals: q near 2 in every
+    lane, k near a per-key level drawn from [-2, 3], and level 8 at keys
+    137, 237, ... (at head dim 96 a row max 141-283 above the other keys,
+    reached after two KV tiles whose max it passes by more than 126)."""
+    b, s, hkv, d = k.shape
+    level = torch.rand(b, s, 1, 1, device="cuda", generator=gen) * 5 - 2
+    level[:, 137::100] = 8.0
+    noise = lambda x: 0.05 * torch.randn(x.shape, device="cuda", generator=gen)  # noqa: E731
+    q = (2.0 + noise(q)).to(torch.bfloat16)
+    k = (level + noise(k)).to(torch.bfloat16)
+    return q, k
+
+
+def ftz_band_terms(q, k, kw) -> int:
+    """Allowed (row, key) terms whose scaled base-2 score lies 126 to 149
+    below their row's max: p = 2^-126 .. 2^-149, subnormal in f32, which the
+    kernel's exp2 flushes to 0."""
+    from aki_torch.ops.flash_mma_args import LOG2E
+
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    allowed = case_allowed(b, t, s, kw["spec"], kw["kv_valid"], kw["causal"], kw["q_offset"])
+    kx = k.float().repeat_interleave(h // k.shape[2], 2)
+    sc = torch.einsum("bthd,bshd->bhts", q.float(), kx) * (d ** -0.5 * LOG2E)
+    if allowed is not None:
+        sc = sc.masked_fill(~allowed[:, None], -math.inf)
+    gap = sc.amax(-1, keepdim=True) - sc
+    return int(((gap > 126) & (gap <= 149)).sum())
+
+
+def time_forward(name, q, k, v, kw, rounds=1) -> dict:
+    """The bf16 forward (K1/K2) through its wrapper on q, k, v: the call's
+    time (ms, CUDA events around the wrapper) and the kernel's device time
+    alone (device_ms), beside the bound, the plain version and one SDPA call
+    with the same boolean mask on the same tensors (library_ms, and
+    library_device_ms: every device kernel of that call); the device times
+    the median of ``rounds`` (device_rounds); the block rows the launch
+    took."""
+    from aki_torch.ops.flash_mma import (flash_mma_attention, flash_mma_attention_reference,
+                                         forward_block_rows)
+
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    allowed = case_allowed(b, t, s, kw["spec"], kw["kv_valid"], kw["causal"], kw["q_offset"])
+    flops, nbytes = allowed_work(b, t, s, h, hkv, d, allowed, kw["kv_valid"] is not None)
+    t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if hkv != h:
+        kt = kt.repeat_interleave(h // hkv, 1)
+        vt = vt.repeat_interleave(h // hkv, 1)
+    mask = None if allowed is None else allowed[:, None]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    rec = dict(
+        ms=cuda_ms(lambda: flash_mma_attention(q, k, v, **kw)),
+        **device_rounds(lambda: flash_mma_attention(q, k, v, **kw), sdpa, rounds),
+        block_rows=forward_block_rows(b, t, h, d),
+        plain_ms=cuda_ms(lambda: flash_mma_attention_reference(q, k, v, **kw)),
+        library_ms=cuda_ms(sdpa),
+        bound_ms=max(t_flops, t_bytes),
+        bound_by="operations" if t_flops >= t_bytes else "bytes",
+        bound_flops=flops, bound_bytes=nbytes,
+    )
+    for key in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                "bound_by", "block_rows", "device_ms_rounds", "library_device_ms_rounds",
+                "burst_ms_rounds", "library_burst_ms_rounds", "gemm_witness_tflops",
+                "profiler_launches_seen_of"):
+        if key in rec:
+            log(f"  {name} {key}={rec[key]}")
+    return rec
+
+
 def kernel_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None,
-                kv_valid=None, q_offset=0, timed=False, zero_rows=None):
-    """One kernel-vs-plain comparison on the card; returns its record.
-    ``zero_rows`` = (batch row, query rows) that must come out exactly 0."""
-    from aki_torch.ops.flash_mma import (flash_mma_attention,
-                                         flash_mma_attention_reference)
+                kv_valid=None, q_offset=0, timed=False, zero_rows=None, lse=False,
+                spread=False):
+    """One kernel-vs-plain comparison on the card; returns its record, with
+    the tile classes the call ran. ``zero_rows`` = (batch row, query rows)
+    that must come out exactly 0; ``lse`` also holds the forward's row
+    logsumexp to the plain one (LSE_ATOL, +inf on the same rows);
+    ``spread`` takes q and k from spread_qk."""
+    from aki_torch.ops.flash_mma import count_tiles, flash_mma_attention, flash_mma_forward
 
     q, k, v, spec = case_inputs(b, t, s, h, hkv, d, gen, rects)
+    if spread:
+        q, k = spread_qk(q, k, gen)
     kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
 
-    got = flash_mma_attention(q, k, v, **kw)
+    with count_tiles() as counts:
+        if lse:
+            got, lse_got = flash_mma_forward(q, k, v, with_lse=True, **kw)
+        else:
+            got = flash_mma_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     rec = dict(name=name, shape=[b, t, s, h, hkv, d], causal=causal,
+               tiles=tile_gate(name, counts, b, t, s, h, spec, kv_valid, q_offset, causal,
+                               80 if d <= 80 else 96),
                **forward_gates(f"kernel {name}", got, q, k, v, kw, zero_rows=zero_rows))
-
+    if spread:
+        rec["exp2_flush_band_terms"] = n_band = ftz_band_terms(q, k, kw)
+        log(f"  {name} allowed terms 126-149 below their row's base-2 max "
+            f"(exp2 flushes them): {n_band}")
+        if n_band == 0:
+            raise SystemExit(f"chip_smoke: kernel {name} has no score in the exp2 flush band")
+    if lse:
+        err, ok = lse_gate(lse_got, q, k, kw)
+        rec["lse_max_abs_err"] = err
+        log(f"  {name} lse_max_abs_err={err:.3g} (tol {LSE_ATOL}, +inf rows equal) "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: kernel {name} lse disagrees with the plain one")
+    log(f"  {name} tiles={rec['tiles']}")
     if timed:
-        allowed = case_allowed(b, t, s, spec, kv_valid, causal, q_offset)
-        flops, nbytes = allowed_work(b, t, s, h, hkv, d, allowed, kv_valid is not None)
-        t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-        # the library yardstick: one SDPA call with the same boolean mask
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if hkv != h:
-            kt = kt.repeat_interleave(h // hkv, 1)
-            vt = vt.repeat_interleave(h // hkv, 1)
-        mask = None if allowed is None else allowed[:, None]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        rec.update(
-            ms=cuda_ms(lambda: flash_mma_attention(q, k, v, **kw)),
-            plain_ms=cuda_ms(lambda: flash_mma_attention_reference(q, k, v, **kw)),
-            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask)),
-            bound_ms=max(t_flops, t_bytes),
-            bound_by="operations" if t_flops >= t_bytes else "bytes",
-            bound_flops=flops, bound_bytes=nbytes,
-        )
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
-            log(f"  {name} {key}={rec[key]}")
+        rec.update(time_forward(name, q, k, v, kw))
     return rec
 
 
@@ -440,10 +592,19 @@ def bound(work):
     return max(t_flops, t_bytes), ("operations" if t_flops >= t_bytes else "bytes")
 
 
+# Every profiler session of kernel_split_ms: its calls and the launches it
+# saw per kernel name. The profiler can return fewer launches than were
+# issued (none at all, at times), so a sum over the calls undercounts.
+PROFILER_SESSIONS: list[tuple[int, dict[str, int]]] = []
+
+
 def kernel_split_ms(fn, reps: int = 10) -> dict[str, float]:
     """Device ms per call of each kernel ``fn`` launches, by name, from
-    torch.profiler over ``reps`` calls (empty if the profiler saw no device
-    events)."""
+    torch.profiler over ``reps`` calls: the mean time of the launches the
+    profiler saw times the launches per call (ceil(seen / reps): each name
+    launched a fixed number of times per call), so that launches it missed
+    do not count as time not spent; empty if it saw no device events. The
+    session's counts go to PROFILER_SESSIONS."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -453,11 +614,118 @@ def kernel_split_ms(fn, reps: int = 10) -> dict[str, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out: dict[str, float] = {}
+    total: dict[str, float] = {}
+    seen: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    return out
+            total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            seen[e.name] = seen.get(e.name, 0) + 1
+    PROFILER_SESSIONS.append((reps, seen))
+    return {n: total[n] / seen[n] * math.ceil(seen[n] / reps) for n in total}
+
+
+def profiler_shortfall(kernel: str | None = None) -> tuple[int, int]:
+    """(launches seen, launches per call x calls) of the last profiler
+    session, over the names holding ``kernel`` (all when None)."""
+    reps, seen = PROFILER_SESSIONS[-1]
+    names = [n for n in seen if kernel is None or kernel in n]
+    return (sum(seen[n] for n in names),
+            sum(math.ceil(seen[n] / reps) * reps for n in names))
+
+
+def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float | None:
+    """Device time per call of ``fn`` alone: torch.profiler tracing the
+    device over ``reps`` calls after a warm-up, the summed time of the
+    device kernels whose name holds ``kernel`` (every device kernel of the
+    call when None) over the count; None when the profiler saw none. Unlike
+    cuda_ms it leaves out the host work and the small launches around the
+    kernel (the wrapper's mask marshalling)."""
+    split = kernel_split_ms(fn, reps)
+    picked = [v for k, v in split.items() if kernel is None or kernel in k]
+    return sum(picked) if picked else None
+
+
+def device_rounds(fn, library, rounds: int) -> dict:
+    """device_ms of the forward kernel in ``fn`` and of every kernel of
+    ``library`` (the SDPA call), alternated over ``rounds`` rounds: the
+    medians (device_ms, library_device_ms), the launches each profiler
+    session saw of those issued (profiler_shortfall) and, for more than one round,
+    each round's times, the same calls timed as one burst by CUDA events
+    (burst_ms), the card's clocks read after each round's kernel (sm_clock)
+    and the rate of a fixed GEMM timed just before it (gemm_witness): the
+    spread's witnesses."""
+    dev, lib, dev_ev, lib_ev, clocks, witness, seen = [], [], [], [], [], [], []
+    for _ in range(rounds):
+        if rounds > 1:
+            witness.append(gemm_witness())
+        dev.append(device_ms(fn, "flash_mma_fwd_kernel"))
+        seen.append(profiler_shortfall("flash_mma_fwd_kernel"))
+        if rounds > 1:
+            dev_ev.append(burst_ms(fn))
+            clocks.append(sm_clock())
+        lib.append(device_ms(library))
+        seen.append(profiler_shortfall())
+        if rounds > 1:
+            lib_ev.append(burst_ms(library))
+    rec = dict(device_ms=median_of(dev), library_device_ms=median_of(lib),
+               profiler_launches_seen_of=seen)
+    if rounds > 1:
+        rec.update(device_ms_rounds=dev, library_device_ms_rounds=lib, burst_ms_rounds=dev_ev,
+                   library_burst_ms_rounds=lib_ev, clocks=clocks, gemm_witness_tflops=witness)
+    return rec
+
+
+def median_of(xs):
+    """The median of the values that are not None; None if there are none."""
+    xs = [x for x in xs if x is not None]
+    return statistics.median(xs) if xs else None
+
+
+def burst_ms(fn, reps: int = 20) -> float:
+    """Time per call of ``reps`` calls of ``fn`` issued back to back, by CUDA
+    events around the burst: the device time when the host issues faster
+    than the device runs (calls of a few hundred us), and a check on
+    device_ms that does not go through the profiler."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+_WITNESS: list = []
+
+
+def gemm_witness() -> dict:
+    """TFLOP/s of one 4096^3 bf16 GEMM (cuBLAS), by device_ms and by
+    burst_ms: a fixed, compute-bound piece of work whose rate follows the
+    card's state at the moment (clock, power) and the timer's, and nothing
+    of the kernel under test."""
+    if not _WITNESS:
+        g = torch.Generator(device="cuda").manual_seed(99)
+        _WITNESS.append(torch.randn(4096, 4096, device="cuda", generator=g).to(torch.bfloat16))
+    a = _WITNESS[0]
+    flop = 2 * 4096 ** 3 / 1e9
+    ms = device_ms(lambda: a @ a)
+    return {"profiler": None if ms is None else flop / ms,
+            "events": flop / burst_ms(lambda: a @ a)}
+
+
+def sm_clock() -> str:
+    """The card's SM and memory clocks (MHz), power draw (W), temperature
+    (C) and, where this nvidia-smi reads them, the active clock throttle
+    reasons (a bit mask), as nvidia-smi reads them now."""
+    fields = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
+    for query in (fields + ",clocks_throttle_reasons.active", fields):
+        out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                              "--format=csv,noheader,nounits"], capture_output=True, text=True)
+        if out.returncode == 0:
+            return out.stdout.strip().splitlines()[0]
+    raise SystemExit(f"chip_smoke: nvidia-smi cannot read {fields}")
 
 
 def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=None,
@@ -491,11 +759,7 @@ def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=N
     got = run_backward(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
     want = flash_mma_backward_reference(q, k, v, out, do, lse, **kw)
-    lse_want = flash_mma_lse_reference(q, k, **kw)
-    finite = torch.isfinite(lse_want)
-    lse_ok = bool((torch.isfinite(lse) == finite).all()) and (
-        not finite.any() or (lse - lse_want)[finite].abs().max().item() <= LSE_ATOL)
-    lse_err = (lse - lse_want)[finite].abs().max().item() if finite.any() else 0.0
+    lse_err, lse_ok = lse_gate(lse, q, k, kw)
     # the same backward in f32 on the same bf16 inputs, from its own f32
     # forward: the kernel should be as close to it as the plain version is
     exact = flash_mma_backward_reference(q32, k32, v32, o32, do32,
@@ -548,13 +812,16 @@ def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=N
         rec["fwd_lse_bound_ms"], rec["fwd_lse_bound_by"] = bound((f_flops,
                                                                  f_bytes + 4 * b * h * t))
         with torch.no_grad():
+            sdpa_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kr, vr, attn_mask=allowed[:, None])
             rec["fwd_plain_ms"] = cuda_ms(lambda: flash_mma_attention_reference(q, k, v, **kw))
-            rec["fwd_library_ms"] = cuda_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kr, vr, attn_mask=allowed[:, None]))
+            rec["fwd_library_ms"] = cuda_ms(sdpa_fwd)
+            rec["fwd_library_device_ms"] = device_ms(sdpa_fwd)
         rec.update(
             ms=cuda_ms(lambda: run_backward(q, k, v, out, do, lse, **kw)),
             fwd_lse_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, with_lse=True, **kw)),
+            fwd_lse_device_ms=device_ms(lambda: flash_mma_forward(q, k, v, with_lse=True, **kw),
+                                        "flash_mma_fwd_kernel"),
             plain_ms=cuda_ms(lambda: flash_mma_backward_reference(q, k, v, out, do, lse, **kw)),
             library_ms=cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
                                                            retain_graph=True)),
@@ -567,8 +834,8 @@ def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=N
         rec["dkv_bound_ms"], rec["dkv_bound_by"] = bound(w_dkv)
         for key in ("ms", "dq_ms", "dkv_ms", "fwd_lse_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "dq_bound_ms", "dkv_bound_ms", "bound_flops",
-                    "bound_bytes", "fwd_lse_bound_ms", "fwd_lse_bound_by", "fwd_plain_ms",
-                    "fwd_library_ms"):
+                    "bound_bytes", "fwd_lse_device_ms", "fwd_lse_bound_ms", "fwd_lse_bound_by",
+                    "fwd_plain_ms", "fwd_library_ms", "fwd_library_device_ms"):
             log(f"  {name} {key}={rec[key]}")
     return rec
 
@@ -1237,34 +1504,46 @@ def scale_fold_gap(label, got, q, k, v, kw, scale) -> dict:
 
 
 def flat_case(name, b, t, s, h, d, gen, causal=True, rects=None, lens=None, timed=False,
-              zero_rows=None, scale_fold=False) -> dict:
+              zero_rows=None, scale_fold=False, kv_valid=None, q_offset=0,
+              rounds=SPREAD_ROUNDS) -> dict:
     """K6 on the flat layout against its plain version (forward_gates on the
     (B,T,H,128) view), its pad lanes exactly 0 where V's are, and its real
     lanes against K1 on the unpadded tensors under the same element-wise
-    gate. Returns the record, with the launches of its one counted call."""
-    from aki_torch.ops.flash_mma import flash_mma_attention_flat, flash_mma_forward
+    gate. Returns the record, with the launches of its one counted call and
+    the tile classes it ran; ``timed`` adds K6's times and, under "k1", K1
+    held to its plain version and timed on the unpadded tensors, the device
+    times each the median of ``rounds`` (device_rounds). Key validity from
+    ``lens`` (a prefix per row) or ``kv_valid``."""
+    from aki_torch.ops.flash_mma import (count_tiles, flash_mma_attention_flat,
+                                         flash_mma_forward, forward_block_rows)
 
     q, k, v, spec = case_inputs(b, t, s, h, h, d, gen, rects)
-    kv_valid = None if lens is None else prefix_valid(lens, s)
+    if lens is not None:
+        kv_valid = prefix_valid(lens, s)
     qf, kf, vf = pad_heads(q, True), pad_heads(k, True), pad_heads(v, False)
-    kw = dict(spec=spec, kv_valid=kv_valid, causal=causal)
+    kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
     n0 = flash_mma_attention_flat.launches
-    got = flash_mma_attention_flat(qf, kf, vf, h, d, **kw)
+    with count_tiles() as counts:
+        got = flash_mma_attention_flat(qf, kf, vf, h, d, **kw)
     launched = flash_mma_attention_flat.launches - n0
+    with count_tiles() as k1_counts:
+        k1 = flash_mma_forward(q, k, v, spec, kv_valid, q_offset, causal)[0]
     torch.cuda.synchronize()
     view = lambda x: x.view(b, x.shape[1], h, FLAT_DP)  # noqa: E731
     rec = dict(name=name, shape=[b, t, s, h, FLAT_DP], head_dim=d, causal=causal,
                launches=launched,
+               tiles=tile_gate(f"K6 {name}", counts, b, t, s, h, spec, kv_valid, q_offset,
+                               causal, FLAT_DP),
                **forward_gates(f"K6 {name}", view(got), view(qf), view(kf), view(vf),
                                dict(kw, scale=d ** -0.5), zero_rows=zero_rows))
-    k1 = flash_mma_forward(q, k, v, spec, kv_valid, 0, causal)[0]
     real = view(got)[..., :d].float()
     rec["max_abs_vs_k1"] = (real - k1.float()).abs().max().item()
     pad_zero = bool((view(got)[..., d:] == 0).all())
     ok = (launched == 1 and pad_zero
           and bool(((real - k1.float()).abs() <= ATOL + RTOL * k1.float().abs()).all()))
     log(f"  K6 {name}: launches={launched} pad_lanes_zero={pad_zero} "
-        f"max|real lanes - K1 unpadded|={rec['max_abs_vs_k1']:.6g} {'ok' if ok else 'FAILED'}")
+        f"max|real lanes - K1 unpadded|={rec['max_abs_vs_k1']:.6g} tiles={rec['tiles']} "
+        f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise SystemExit(f"chip_smoke: K6 {name} failed")
     if scale_fold:
@@ -1273,23 +1552,37 @@ def flat_case(name, b, t, s, h, d, gen, causal=True, rects=None, lens=None, time
     if timed:
         from aki_torch.ops.flash_mma import flash_mma_attention_flat_reference
 
-        allowed = case_allowed(b, t, s, spec, kv_valid, causal)
+        allowed = case_allowed(b, t, s, spec, kv_valid, causal, q_offset)
         flops, nbytes = allowed_work(b, t, s, h, h, FLAT_DP, allowed, kv_valid is not None)
         t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
         qt, kt, vt = (view(x).transpose(1, 2) for x in (qf, kf, vf))
         mask = None if allowed is None else allowed[:, None]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, scale=d ** -0.5)
+        k6 = lambda: flash_mma_attention_flat(qf, kf, vf, h, d, **kw)  # noqa: E731
         rec.update(
-            ms=cuda_ms(lambda: flash_mma_attention_flat(qf, kf, vf, h, d, **kw)),
+            ms=cuda_ms(k6),
+            **device_rounds(k6, sdpa, rounds),
+            block_rows=forward_block_rows(b, t, h, FLAT_DP),
             plain_ms=cuda_ms(lambda: flash_mma_attention_flat_reference(qf, kf, vf, h, d, **kw)),
-            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=d ** -0.5)),
-            k1_unpadded_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, spec, kv_valid, 0,
+            library_ms=cuda_ms(sdpa),
+            k1_unpadded_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, spec, kv_valid, q_offset,
                                                              causal)),
             bound_ms=max(t_flops, t_bytes),
             bound_by="operations" if t_flops >= t_bytes else "bytes",
             bound_flops=flops, bound_bytes=nbytes)
-        for key in ("ms", "plain_ms", "library_ms", "k1_unpadded_ms", "bound_ms", "bound_by"):
-            log(f"  K6 {name} {key}={rec[key]}")
+        for key in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                    "k1_unpadded_ms", "bound_ms", "bound_by", "block_rows",
+                    "device_ms_rounds", "library_device_ms_rounds", "burst_ms_rounds",
+                    "library_burst_ms_rounds", "gemm_witness_tflops",
+                    "profiler_launches_seen_of"):
+            log(f"  K6 {name} {key}={rec.get(key)}")
+        # K1 on the unpadded tensors, SDPA on the same unpadded tensors
+        rec["k1"] = dict(name=f"{name}_k1", shape=[b, t, s, h, h, d], causal=causal,
+                         tiles=tile_gate(f"{name}_k1", k1_counts, b, t, s, h, spec, kv_valid,
+                                         q_offset, causal, 80 if d <= 80 else 96),
+                         **forward_gates(f"kernel {name}_k1", k1, q, k, v, kw),
+                         **time_forward(f"{name}_k1", q, k, v, kw, rounds))
     return rec
 
 
@@ -1426,7 +1719,16 @@ def flat_and_q8(cfg, prompt_a, prompt_b) -> tuple[list, list, dict]:
            flat_case("s_1024", 1, t_a, 1024, *dec, gen, rects=[rect_a], lens=[t_a]),
            flat_case("t_37", 2, 37, 37, *dec, gen, rects=[(2, 10, 30)]),
            flat_case("dead_row", 2, 100, 100, *dec, gen, lens=[100, 0],
-                     zero_rows=(1, slice(None)))]
+                     zero_rows=(1, slice(None))),
+           flat_case("images16_qoffset_hole", 2, 201, 389, 4, ph.head_dim, gen,
+                     rects=EDGE_RECTS_16, q_offset=torch.tensor([100, 188], device="cuda"),
+                     kv_valid=holed_valid([301, 389], 389, [[20], [70, 200]])),
+           flat_case("big_grid_edges", 12, 300, 389, ph.num_heads, ph.head_dim, gen,
+                     rects=EDGE_RECTS_2, q_offset=89,
+                     kv_valid=holed_valid([389] * 6 + [300] * 6, 389, [[64]] * 12)),
+           flat_case("tower_hole_d72", 2, sg.num_patches, sg.num_patches, sg.num_heads,
+                     sg.head_dim, gen, causal=False,
+                     kv_valid=holed_valid([729, 700], 729, [[130], []]))]
     for bad, (s_len, width) in {"s_1025": (1025, FLAT_DP), "dp_96": (64, 96)}.items():
         x = torch.zeros(1, 16, ph.num_heads * width, dtype=torch.bfloat16, device="cuda")
         kv = torch.zeros(1, s_len, ph.num_heads * width, dtype=torch.bfloat16, device="cuda")
@@ -1462,6 +1764,42 @@ def flat_and_q8(cfg, prompt_a, prompt_b) -> tuple[list, list, dict]:
     return k6, k7, k1_fold
 
 
+# Edge cases of the forward, chosen with flash_mma_args.tile_classes: 16
+# images with edges at 64-key tile boundaries and one off them (tile
+# boundaries are multiples of 64 for every block size), on sequences of
+# lengths that no block size divides
+EDGE_RECTS_16 = [(1, 63, 65), (62, 64, 127), (65, 129, 191), (126, 128, 193)] + [
+    (130 + 21 * n, 141 + 21 * n, 151 + 21 * n) for n in range(12)]
+EDGE_RECTS_2 = [(63, 129, 191), (193, 255, 321)]
+
+
+def holed_valid(lens, s, holes) -> torch.Tensor:
+    """prefix_valid(lens, s) with the keys ``holes`` (one list per row) set
+    invalid: a hole inside a tile that is full but for it."""
+    valid = prefix_valid(lens, s)
+    for row, keys in enumerate(holes):
+        valid[row, keys] = 0
+    return valid
+
+
+def tile_coverage(records) -> dict:
+    """Which tile classes the forward's edge and main cases ran, per padded
+    width, as the kernel counted them (tile_gate); fails the script unless
+    every width ran skip, full and partial."""
+    from aki_torch.ops.flash_mma_args import TILE_CLASS_NAMES
+
+    cover: dict = {}
+    for r in records:
+        by = cover.setdefault(r["tiles"]["width"], dict.fromkeys(TILE_CLASS_NAMES, 0))
+        for n in TILE_CLASS_NAMES:
+            by[n] += r["tiles"][n]
+    ok = set(cover) == {80, 96, FLAT_DP} and all(all(c.values()) for c in cover.values())
+    log(f"forward tile classes run, per width: {cover} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the forward's cases miss a tile class at some width")
+    return cover
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1493,7 +1831,8 @@ def main() -> int:
     log(f"build seconds={time.perf_counter() - t0:.1f} nvcc_seconds={build_s}")
     for name in KERNEL_SOURCES:
         for line in (cuda_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                       "Performance Loss")):
                 log(f"  ptxas {name}:", line.strip())
 
     cfg = aki_4b()
@@ -1530,6 +1869,27 @@ def main() -> int:
                     kv_valid=prefix_valid([140, 190], 200)),
         kernel_case("siglip_ragged_valid", 2, 729, 768, 16, 16, 72, gen,
                     causal=False, kv_valid=prefix_valid([729, 700], 768)),
+        # edges of the tile classes (EDGE_RECTS_*, holed_valid)
+        kernel_case("edges_pm1_d96", 1, 389, 389, 4, 4, 96, gen, rects=EDGE_RECTS_2,
+                    kv_valid=prefix_valid([389], 389)),
+        kernel_case("images16_qoffset_hole_d88", 2, 201, 389, 4, 4, 88, gen,
+                    rects=EDGE_RECTS_16, q_offset=torch.tensor([100, 188], device="cuda"),
+                    kv_valid=holed_valid([301, 389], 389, [[20], [70, 200]])),
+        kernel_case("gqa_h32_hkv8_lse", 2, 300, 300, 32, 8, 96, gen, rects=EDGE_RECTS_2,
+                    kv_valid=holed_valid([300, 257], 300, [[5], []]), lse=True),
+        kernel_case("hole_dead_rows_d72", 2, 150, 150, 4, 4, 72, gen,
+                    kv_valid=holed_valid([150, 0], 150, [[70], []]),
+                    zero_rows=(1, slice(None)), lse=True),
+        # 192-row blocks (three consumer warpgroups): grids of two waves
+        kernel_case("big_grid_edges_d96", 12, 300, 389, 32, 32, 96, gen, rects=EDGE_RECTS_2,
+                    q_offset=89, kv_valid=holed_valid([389] * 6 + [300] * 6, 389,
+                                                      [[64]] * 12)),
+        kernel_case("big_grid_tower_hole_d72", 24, 729, 729, 16, 16, 72, gen, causal=False,
+                    kv_valid=holed_valid([729] * 23 + [500], 729, [[]] * 23 + [[130]])),
+        # base-2 scores spread past 126 along each row: p and alpha that
+        # exp2 flushes to 0 where the plain version keeps subnormals
+        kernel_case("exp2_flush_spread_d96", 2, 389, 389, 4, 4, 96, gen, rects=EDGE_RECTS_2,
+                    spread=True),
     ]
 
     # 4. full-width generation
@@ -1699,6 +2059,10 @@ def main() -> int:
 
     # 13. K6 and K7 through their wrappers: no path of the package runs them
     k6, k7, k1_fold = flat_and_q8(cfg, *int8_prompts)
+    # K1 at the two B = 48 shapes of phase 13, and the tile classes that the
+    # forward's cases ran at each width
+    k1_b48 = [c["k1"] for c in k6 if "k1" in c]
+    coverage = tile_coverage(cases + k1_b48 + k6)
 
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
@@ -1716,14 +2080,22 @@ def main() -> int:
                     "aki_tpu/ops/flash_mma_bwd.py:68 (_lse_kernel)",
         "launches": launches + train_launches["fwd"],
         "launches_by_path": {"generate": launches, "train": train_launches["fwd"]},
-        "max_abs_err": max([c["max_abs_err"] for c in cases]
+        "max_abs_err": max([c["max_abs_err"] for c in cases + k1_b48]
                            + [c["fwd_max_abs_err"] for c in bwd]),
-        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "device_ms", "library_device_ms")},
         "shape": "decoder_prefill_a " + "x".join(map(str, head["shape"])),
-        "train_fwd_lse": {k: tb[k] for k in ("fwd_lse_ms", "fwd_lse_bound_ms",
-                                             "fwd_lse_bound_by", "fwd_plain_ms",
-                                             "fwd_library_ms")},
+        "timing_note": "ms and library_ms: CUDA events around one wrapper / SDPA call; "
+                       "device_ms and library_device_ms: torch.profiler, the kernel's "
+                       "(every SDPA kernel's) device time per call over 20 calls",
+        "train_fwd_lse": {k: tb[k] for k in ("fwd_lse_ms", "fwd_lse_device_ms",
+                                             "fwd_lse_bound_ms", "fwd_lse_bound_by",
+                                             "fwd_plain_ms", "fwd_library_ms",
+                                             "fwd_library_device_ms")},
         "shapes": main_cases,
+        "b48": k1_b48,
+        "tile_coverage": coverage,
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count,
     }] + [{
         "name": f"flash_mma_{kn}", "route": "cuda",
         "source": "aki_torch/csrc/flash_mma_bwd.cu",
@@ -1780,7 +2152,8 @@ def main() -> int:
         "name": "flash_mma_flat", "route": "cuda", "source": "aki_torch/csrc/flash_mma_fwd.cu",
         "replaces": K6_REPLACES, "launches": n6, "launches_by_path": {"phase13": n6},
         "max_abs_err": max(c["max_abs_err"] for c in k6),
-        **{k: k6_head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: k6_head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "device_ms", "library_device_ms")},
         "shape": "decoder_serving " + "x".join(map(str, k6_head["shape"])),
         "library_note": "SDPA with the boolean mask on the (B, H, T, 128) view",
         "scale_fold": {"k6_decoder_serving": k6_head["scale_fold"], "k1_prefill_a": k1_fold},
@@ -1795,6 +2168,11 @@ def main() -> int:
         "cases": k7,
     }]
     record.update(int8_generate=int8_gen, prefill_attention=attn_times, serve=serve)
+    short = [(reps, seen) for reps, seen in PROFILER_SESSIONS
+             if any(n % reps for n in seen.values()) or not seen]
+    record["profiler_sessions"] = {"sessions": len(PROFILER_SESSIONS), "short": len(short)}
+    log(f"profiler sessions of kernel_split_ms: {len(PROFILER_SESSIONS)}, of which {len(short)} "
+        f"saw fewer launches than issued (or none): {short[:8]}")
     log(json.dumps(record))
     log(f"elapsed_seconds={time.perf_counter() - t_start:.1f}")
     log(card)
