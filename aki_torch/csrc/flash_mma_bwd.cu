@@ -18,413 +18,679 @@
 //   dk[k] += bf16(ds) * q[q]
 // p and ds are rounded to bf16 before their products, every sum is f32, and
 // dq, dk, dv are written in bf16: the rounding points of the TPU kernels.
+// exp2 is one ex2.approx.ftz, as in the forward: a p below 2^-126 becomes
+// 0 (the plain version keeps it as a subnormal, under one f32 ulp of the
+// row's largest p, which is 1 before the division by the row sum).
 //
-// Work split. flash_mma_dq_kernel: one block of 4 warps per (64 query rows,
-// head, batch row), Q and dO kept as mma A fragments in registers, a loop
-// over 64-key tiles with the forward's tile skip (a tile is visited only if
-// it overlaps the causal frontier of the block's rows or an image's MMA
-// rectangle). flash_mma_dkv_kernel: one block per (64 keys, KV head, batch
-// row); it loops over the query heads of its GQA group and over every q
-// tile, visiting a (q tile, key tile) pair under the same predicate as dq
-// and the forward, so a pair is either visited by all three or skipped by
-// all three. The group sum of dk and dv happens in the block's f32
-// registers: no K/V is repeated, no sum runs afterwards and no atomics are
-// used, so the result is deterministic.
+// Work split: two kernels, as the TPU package has them, and no atomics, so
+// the result is deterministic and needs no f32 dq buffer. S and dP are
+// computed in both (14*D FLOPs per allowed pair and head instead of 10*D).
+// - flash_mma_dq_kernel: a block owns NC x 64 query rows of one (head,
+//   batch row); Q and dO are loaded once, K and V tiles of 64 keys stream
+//   through the ring. Per tile: S = Q K^T and dP = dO V^T (wgmma, A and B
+//   from shared memory, K-major), p and ds in registers, dQ += bf16(dS) K
+//   (wgmma, dS from registers as bf16 A fragments, K as an MN-major B: the
+//   forward's P V).
+// - flash_mma_dkv_kernel: a block owns NC x 64 keys of one (KV head, batch
+//   row); K and V are loaded once, Q, dO and their rows' lse and delta
+//   stream through the ring, over every query head of the GQA group. It
+//   computes the transposed products S^T = K Q^T and dP^T = V dO^T with
+//   the block's keys as M, so that P^T and dS^T come out of the
+//   accumulators already in the A-fragment layout of dV += bf16(P^T) dO and
+//   dK += bf16(dS^T) Q (dO and Q as MN-major B). No transpose in shared
+//   memory. The group's dK and dV are summed in f32 registers and rounded
+//   once.
+// Both kernels are warp-specialised as the forward: one producer warp
+// issues TMA loads (cp.async.bulk.tensor from CUtensorMaps built on the
+// host per call) into 128-byte-swizzled two-chunk tiles, zero-filled past
+// D, T and S, through a ring of 2-3 stages with "full" (transaction bytes)
+// and "empty" (one arrival per consumer warp) mbarriers; NC consumer
+// warpgroups of 64 rows each compute. NC is 2 once B * heads * ceil(rows /
+// 128) fills two waves of the SMs, else 1 (two blocks to an SM). The tiles
+// of one (head, batch row) are launched next to each other (its K and V,
+// or Q and dO, are read from HBM about once), the longest walk first.
+// dkv holds dK, dV, S^T, dP^T and two sets of fragments at once, about
+// 200 registers a thread: its producer warp sits in a warpgroup of its
+// own, which gives its registers to the consumers (setmaxnreg); with one
+// warp it was held to 168, spilled and serialised its wgmma (ptxas C7512),
+// and took 1.5x the time (exp_torch/bwd_ab.py on an H100).
 //
-// Transposed products. dkv computes S^T = K Q^T and dP^T = V dO^T with the
-// block's keys as the mma's M dimension, so that P^T and dS^T come out of
-// the accumulators already in the A-fragment layout of dV += P^T dO and
-// dK += dS^T Q; the B operand of those two products (queries along k) is
-// gathered from shared memory two 16-bit values at a time, the forward's
-// PV pattern. No ldmatrix.trans and no staged transpose is needed.
+// Tile classes, per (64 query rows, 64 keys), as the forward's and
+// aki_torch/ops/flash_mma_args.py:tile_classes: *skip* (outside the causal
+// frontier and every MMA rectangle: never loaded when the whole block skips
+// it, never computed by a warpgroup that skips it), *full* (every key below
+// the causal frontier of the first row, or non-causal, and every key < S
+// and valid: computed with no mask), *partial* (the rest: each score tested
+// in O(1), the row's image bitmask against the key's, and the producer's or
+// the warp's vote of kv_valid). The producer and the consumers walk the
+// same list of tiles. dkv starts each head's walk at the first query tile
+// that the causal frontier or a rectangle lets reach its keys. Rows past T
+// carry lse = +inf, so their p is 0 also in a full tile. With a counter
+// set (flash_mma_bwd_count_tiles), each launch adds the tiles its
+// warpgroups ran, by class: dq per (64 rows, KV tile), dkv per (group head,
+// q tile, 64 keys).
 //
-// What bounds it on an H100: at the training shape (2 x 655 tokens, 32
-// heads of 96, MMA mask) the five products need 14.8 GFLOP under the mask,
-// 15 us at the H100 SXM's 989 TFLOP/s bf16 peak (700 W), and the function
-// moves 63 MB, 19 us at 3.35 TB/s (both counted by chip_smoke.py
-// backward_work): on paper nearly balanced, bytes first. In practice it is
-// bound by latency and instruction throughput, like the forward: mma.sync instead of
-// wgmma, synchronous tile loads with no copy/compute overlap, scalar 16-bit
-// B-fragment gathers, and a per-element mask. The design keeps P, dP and
-// dS out of device memory (the score matrices never exist outside
-// registers) and skips masked-out tiles; cp.async/TMA pipelining, ldmatrix
-// and wgmma are the next steps.
+// What bounds it on an H100 (SXM data-sheet peaks at 700 W: 989 TFLOP/s
+// bf16, 3.35 TB/s) at the training shape (2 x 655 tokens, 32 heads of 96,
+// MMA mask, row 1 padded), counting each tensor once and the pairs the
+// mask allows (chip_smoke.py backward_work): dq needs 0.0117 ms (bytes),
+// dkv 0.0141 ms (bytes); their products 6*D and 8*D FLOPs per pair are
+// 9-12 us at peak, so the pair is nearly balanced, bytes first. A
+// warpgroup computes ~7 tiles there, so what decides the time is how much
+// of each tile's latency (two products, the exp2 and mask pass, one or two
+// products, a barrier round trip) the design hides: TMA loads run ahead of
+// the products, two warpgroups (or two blocks) share an SM, full tiles
+// skip the mask, and each score costs one MUFU instruction.
 //
-// Head widths 72 and 96, padded with zeros in shared memory to 80 and 96
-// exactly as the forward pads them. Plain C interface (bound with ctypes);
-// launches on the caller's stream, never synchronises, allocates nothing,
-// and returns cudaGetLastError().
+// Head widths 72-96, padded to 80 and 96 in the tiles (TMA zero fill).
+// Plain C interface (bound with ctypes); launches on the caller's stream,
+// never synchronises, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per dq block / per dkv q tile
-constexpr int kBlockN = 64;   // keys per dq KV tile / per dkv block
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxImages = 16;
-constexpr int kNTiles = 8;    // 8-wide column tiles of a 16 x 64 product
+// dq: NC consumer warpgroups and one producer warp.
+template <int NC>
+__host__ __device__ constexpr int threads() { return NC * 128 + 32; }
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// dkv: NC consumer warpgroups and a producer warpgroup, whose first warp
+// loads while all four hand their registers to the consumers: dK and dV
+// (2 x DP/2 f32 a thread), S^T and dP^T (2 x 32) and their bf16 fragments
+// (2 x 16) are live at once, more than the 168 a thread that 384 threads
+// get at launch. Per block (one per SM at NC = 2, two at NC = 1) the
+// producers keep kProducerRegs and the consumers take the rest.
+template <int NC>
+__host__ __device__ constexpr int dkv_threads() { return NC * 128 + 128; }
+constexpr int kProducerRegs = 40;
+template <int NC>
+__host__ __device__ constexpr int dkv_consumer_regs() { return NC == 1 ? 216 : 232; }
+
+// Ring depth: three for two-warpgroup blocks (one per SM), two for 64-row
+// blocks, so that two blocks fit an SM.
+template <int NC>
+__host__ __device__ constexpr int stages() { return NC == 1 ? 2 : 3; }
+
+// dq: Q and dO [NC][2 chunks], K and V [stages][2 chunks] from a
+// 1024-byte-aligned base; then the mbarriers, each stage's key-validity
+// mask and the image coordinates.
+template <int NC>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return 1024 + (NC * 4 + 4 * stages<NC>()) * kTileBytes + 8 * (1 + 3 * stages<NC>()) +
+         3 * kMaxImages * 4;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// 64 rows x DP of a (rows, stride) bf16 matrix into shared memory with row
-// pitch DP + 8; rows at or past `limit` and columns at or past D are 0.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t stride, int row0, int limit, int D) {
-  constexpr int LD = DP + 8, CHUNKS = DP / 8;
-  for (int c = threadIdx.x; c < 64 * CHUNKS; c += kThreads) {
-    const int r = c / CHUNKS, d0 = (c % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit && d0 < D)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * stride + d0);
-    *reinterpret_cast<uint4*>(dst + r * LD + d0) = val;
-  }
-}
-
-// A fragments of the 16 rows [rw, rw + 16) of a shared tile, all of DP.
-template <int DP>
-__device__ __forceinline__ void load_a(uint32_t (&f)[DP / 16][4],
-                                       const __nv_bfloat16* tile, int rw, int g, int t4) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const __nv_bfloat16* p = tile + (rw + g) * LD + kk * 16 + 2 * t4;
-    f[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    f[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    f[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    f[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-  }
-}
-
-// c (16 x 64) = a (16 x DP) . tile^T, tile = 64 shared rows of DP.
-template <int DP>
-__device__ __forceinline__ void mma_abt(float (&c)[kNTiles][4], const uint32_t (&a)[DP / 16][4],
-                                        const __nv_bfloat16* tile, int g, int t4) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int nt = 0; nt < kNTiles; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const __nv_bfloat16* p = tile + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
-      mma_16816(c[nt], a[kk], *reinterpret_cast<const uint32_t*>(p),
-                *reinterpret_cast<const uint32_t*>(p + 8));
-    }
-  }
-}
-
-// acc (16 x DP) += a (16 x 64, bf16 A fragments) . tile, tile = 64 shared
-// rows (the k dimension) of DP; B fragments gather two rows of one column.
-template <int DP>
-__device__ __forceinline__ void mma_ab(float (&acc)[DP / 8][4], const uint32_t (&a)[4][4],
-                                       const __nv_bfloat16* tile, int g, int t4) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* p = tile + (kk * 16 + 2 * t4) * LD + g;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      const __nv_bfloat16* pc = p + dt * 8;
-      mma_16816(acc[dt], a[kk], pack_raw(pc[0], pc[LD]), pack_raw(pc[8 * LD], pc[9 * LD]));
-    }
-  }
-}
-
-// f32 accumulators of a 16 x 64 product -> bf16 A fragments over its 64 columns.
-__device__ __forceinline__ void to_a(uint32_t (&f)[4][4], const float (&c)[kNTiles][4]) {
-#pragma unroll
-  for (int nt = 0; nt < kNTiles; ++nt) {
-    const int kk = nt >> 1, hi = (nt & 1) * 2;
-    f[kk][hi] = pack_bf16(c[nt][0], c[nt][1]);
-    f[kk][hi + 1] = pack_bf16(c[nt][2], c[nt][3]);
-  }
-}
-
-// The forward's per-element rule, key validity aside.
-__device__ __forceinline__ bool pair_allowed(int q_abs, int key, int causal, int n_img,
-                                             const int* i0, const int* t0, const int* t1) {
-  if (!causal || key <= q_abs) return true;
-  bool mma = false;
-  for (int n = 0; n < n_img; ++n)
-    mma |= q_abs >= i0[n] && q_abs < t0[n] && key >= t0[n] && key < t1[n];
-  return mma;
-}
-
-// The forward's tile rule: may any row of [q_first, q_last] attend any key
-// of [k0, k0 + 64)?
-__device__ __forceinline__ bool tile_visited(int q_first, int q_last, int k0, int causal,
-                                             int n_img, const int* i0, const int* t0,
-                                             const int* t1) {
-  if (!causal || k0 <= q_last) return true;
-  for (int n = 0; n < n_img; ++n)
-    if (q_first < t0[n] && q_last >= i0[n] && k0 < t1[n] && k0 + kBlockN > t0[n]) return true;
-  return false;
-}
-
-template <int DP>
-constexpr int dq_smem_bytes() {   // one Q/dO staging tile, K, V; key validity; images
-  return 3 * 64 * (DP + 8) * 2 + kBlockN * 4 + 3 * kMaxImages * 4;
-}
-
-template <int DP>
-constexpr int dkv_smem_bytes() {  // K, V, Q, dO tiles; lse, delta, key validity; images
-  return 4 * 64 * (DP + 8) * 2 + 3 * 64 * 4 + 3 * kMaxImages * 4;
+// dkv: K and V [NC][2 chunks], Q and dO [stages][2 chunks]; then the
+// mbarriers, each stage's 64 rows of lse and delta and the image
+// coordinates.
+template <int NC>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return 1024 + (NC * 4 + 4 * stages<NC>()) * kTileBytes + 8 * (1 + 2 * stages<NC>()) +
+         2 * 64 * 4 * stages<NC>() + 3 * kMaxImages * 4;
 }
 
 struct Args {
-  const __nv_bfloat16 *q, *k, *v, *dout;
   const float *lse, *delta;                    // (B, H, T)
   __nv_bfloat16 *dq, *dk, *dv;
   const int *kv_valid, *q_offset, *img_start, *txt_start, *txt_end;
+  int* tile_counts;                            // [skip, full, partial] or null
   int n_img, T, S, H, Hkv, D, causal;
   float scale_log2, scale;
 };
 
+// The 1024-byte-aligned base of the dynamic shared memory (the 128-byte
+// swizzle of the TMA tiles repeats every 1024 bytes).
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ unsigned char smem_raw[];
+  return smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+}
+
+// Does any row in [first, last] (absolute) attend a key of [k0, k0 + n):
+// the causal frontier or one image's MMA rectangle (the forward's visit).
+__device__ __forceinline__ bool reaches(int k0, int n, int first, int last, int causal,
+                                        int n_img, const int* i0, const int* t0,
+                                        const int* t1) {
+  bool vis = !causal || k0 <= last;
+  for (int i = 0; i < n_img && !vis; ++i)
+    vis = first < t0[i] && last >= i0[i] && k0 < t1[i] && k0 + n > t0[i];
+  return vis;
+}
+
+// S (+)= A B^T over the head dim's k-steps, A and B K-major two-chunk tiles.
 template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_mma_dq_kernel(Args a) {
-  constexpr int LD = DP + 8;
-  constexpr int DTILES = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ts = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // Q, then dO
-  __nv_bfloat16* Ks = Ts + 64 * LD;
-  __nv_bfloat16* Vs = Ks + 64 * LD;
-  int* valid_s = reinterpret_cast<int*>(Vs + 64 * LD);
-  int* i0_s = valid_s + kBlockN;
+__device__ __forceinline__ void qk_product(float (&s)[32], uint32_t a_base, uint32_t b_base) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t at = (kk / 4) * kTileBytes + (kk % 4) * 32;
+    wgmma_ss_n64(s, sw128_desc(a_base + at, 16), sw128_desc(b_base + at, 16), kk > 0);
+  }
+}
+
+// acc (64 x DP) += A (64 x 64, bf16 fragments) B, B an MN-major two-chunk
+// tile of 64 rows (the k dimension).
+template <int DP>
+__device__ __forceinline__ void pv_product(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
+                                           uint32_t b_base) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<DP>(acc, a[kk], sw128_desc(b_base + kk * 2048, kTileBytes));
+}
+
+// Accumulator i of a 64 x 64 product (row g + 8 r, column 8 jt + 2 t4 + e,
+// i = 4 jt + 2 r + e) into the bf16 A fragments of 16-column k-steps.
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int jt = 0; jt < 8; ++jt) {
+    const int kk = jt >> 1, hi = (jt & 1) * 2;
+    f[kk][hi] = pack_bf16(x[jt * 4 + 0], x[jt * 4 + 1]);
+    f[kk][hi + 1] = pack_bf16(x[jt * 4 + 2], x[jt * 4 + 3]);
+  }
+}
+
+// DP: head dim padded to 80 or 96; NC: consumer warpgroups (64 query rows
+// each).
+template <int DP, int NC>
+__global__ void __launch_bounds__(threads<NC>(), NC == 1 ? 2 : 1)
+flash_mma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  constexpr int BM = NC * 64;
+  constexpr int kStages = stages<NC>();
+  unsigned char* base = smem_base();
+  unsigned char* Qs = base;                              // [NC][2][64 x 128 B]
+  unsigned char* Ds = Qs + NC * 2 * kTileBytes;          // dO, [NC][2]
+  unsigned char* Ks = Ds + NC * 2 * kTileBytes;          // [kStages][2]
+  unsigned char* Vs = Ks + kStages * 2 * kTileBytes;
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(Vs + kStages * 2 * kTileBytes);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = full + kStages;
+  uint64_t* valid_s = empty + kStages;   // per stage, bit c: key k0 + c is < S and valid
+  int* i0_s = reinterpret_cast<int*>(valid_s + kStages);
   int* t0_s = i0_s + kMaxImages;
   int* t1_s = t0_s + kMaxImages;
 
-  const int q0 = blockIdx.x * kBlockM, h = blockIdx.y, b = blockIdx.z;
+  const int T = a.T, S = a.S, causal = a.causal, n_img = a.n_img;
+  // causal: the last query tiles walk the most KV tiles, start them first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BM;
   const int hk = h / (a.H / a.Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3, rw = warp * 16;
-  const int T = a.T, S = a.S, D = a.D;
-  const size_t q_stride = (size_t)a.H * D, kv_stride = (size_t)a.Hkv * D;
-  const int q_first = a.q_offset[b] + q0;
-  const int q_last = a.q_offset[b] + min(q0 + kBlockM, T) - 1;
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const int off = a.q_offset[b];
+  const int q_first = off + q0, q_last = off + min(q0 + BM, T) - 1;
 
-  if (tid < a.n_img) {
-    i0_s[tid] = a.img_start[b * a.n_img + tid];
-    t0_s[tid] = a.txt_start[b * a.n_img + tid];
-    t1_s[tid] = a.txt_end[b * a.n_img + tid];
+  if (tid < n_img) {
+    i0_s[tid] = a.img_start[b * n_img + tid];
+    t0_s[tid] = a.txt_start[b * n_img + tid];
+    t1_s[tid] = a.txt_end[b * n_img + tid];
   }
-  const size_t qbase = (size_t)b * T * q_stride + (size_t)h * D;
-  uint32_t qf[DP / 16][4], df[DP / 16][4];
-  load_tile<DP>(Ts, a.q + qbase, q_stride, q0, T, D);
+  if (tid == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  load_a<DP>(qf, Ts, rw, g, t4);
-  __syncthreads();
-  load_tile<DP>(Ts, a.dout + qbase, q_stride, q0, T, D);
-  __syncthreads();
-  load_a<DP>(df, Ts, rw, g, t4);
 
-  // rows g and g + 8 of the warp's 16; rows past T get p = 0 through +inf
-  int row_abs[2];
-  float lse_r[2], delta_r[2];
+  auto visit = [&](int k0, int first, int last) {
+    return reaches(k0, kBlockN, first, last, causal, n_img, i0_s, t0_s, t1_s);
+  };
+  const int n_tiles = (S + kBlockN - 1) / kBlockN;
+
+  if (warp == NC * 4) {
+    // producer warp: lane 0 issues every load; the warp votes each KV
+    // tile's key validity ahead of the consumers
+    if (lane == 0) {
+      int bytes = 0;
+      for (int w = 0; w < NC; ++w)
+        if (q0 + 64 * w < T) bytes += 4 * kTileBytes;
+      mbar_expect_tx(qd_full, bytes);
+      for (int w = 0; w < NC; ++w)
+        if (q0 + 64 * w < T)
+          for (int c = 0; c < 2; ++c) {
+            tma_load(Qs + (w * 2 + c) * kTileBytes, &tm_q, qd_full, c * kChunk, h, q0 + 64 * w, b);
+            tma_load(Ds + (w * 2 + c) * kTileBytes, &tm_do, qd_full, c * kChunk, h, q0 + 64 * w, b);
+          }
+    }
+    const int* valid_b = a.kv_valid == nullptr ? nullptr : a.kv_valid + (size_t)b * S;
+    int stage = 0, phase = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = j * kBlockN;
+      if (!visit(k0, q_first, q_last)) continue;
+      const int ka = k0 + lane, kb = k0 + 32 + lane;
+      const bool va = ka < S && (valid_b == nullptr || valid_b[ka] != 0);
+      const bool vb = kb < S && (valid_b == nullptr || valid_b[kb] != 0);
+      const uint64_t vmask = static_cast<uint64_t>(__ballot_sync(0xffffffffu, va)) |
+                             (static_cast<uint64_t>(__ballot_sync(0xffffffffu, vb)) << 32);
+      if (lane == 0) {
+        mbar_wait(&empty[stage], phase ^ 1);   // the first use of a stage passes
+        valid_s[stage] = vmask;                 // published by the arrival below
+        mbar_expect_tx(&full[stage], 4 * kTileBytes);
+        for (int c = 0; c < 2; ++c) {
+          tma_load(Ks + (stage * 2 + c) * kTileBytes, &tm_k, &full[stage], c * kChunk, hk, k0, b);
+          tma_load(Vs + (stage * 2 + c) * kTileBytes, &tm_v, &full[stage], c * kChunk, hk, k0, b);
+        }
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows r0 .. r0 + 63; warp wl of it rows
+  // 16 wl .. 16 wl + 15, of which this thread holds g and g + 8
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + wg * 64;
+  const bool has_rows = r0 < T;
+  const int wg_first = off + r0, wg_last = off + min(r0 + 64, T) - 1;
+  const bool counter = a.tile_counts != nullptr && has_rows && (tid & 127) == 0;
+  const int row_abs[2] = {wg_first + wl * 16 + g, wg_first + wl * 16 + g + 8};
+  uint32_t row_img[2] = {0u, 0u};   // images whose query span holds the row
+  float lse_r[2], delta_r[2];       // rows past T: p = 0 through +inf
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + rw + g + 8 * r;
-    row_abs[r] = q_first + rw + g + 8 * r;
+    for (int n = 0; n < n_img; ++n)
+      if (row_abs[r] >= i0_s[n] && row_abs[r] < t0_s[n]) row_img[r] |= 1u << n;
+    const int row = r0 + wl * 16 + g + 8 * r;
     const size_t idx = ((size_t)b * a.H + h) * T + row;
     lse_r[r] = row < T ? a.lse[idx] : INFINITY;
     delta_r[r] = row < T ? a.delta[idx] : 0.f;
   }
 
-  float acc[DTILES][4];
+  float acc[DP / 2];   // dQ in the wgmma accumulator layout
 #pragma unroll
-  for (int i = 0; i < DTILES; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_base = smem_addr(Qs + wg * 2 * kTileBytes);
+  const uint32_t d_base = smem_addr(Ds + wg * 2 * kTileBytes);
+  const uint32_t k_base = smem_addr(Ks), v_base = smem_addr(Vs);
+  const float sl2 = a.scale_log2, scale = a.scale;
+  mbar_wait(qd_full, 0);
 
-  const __nv_bfloat16* kb = a.k + (size_t)b * S * kv_stride + (size_t)hk * D;
-  const __nv_bfloat16* vb = a.v + (size_t)b * S * kv_stride + (size_t)hk * D;
-  const int n_tiles = (S + kBlockN - 1) / kBlockN;
+  int stage = 0, phase = 0;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBlockN;
-    if (!tile_visited(q_first, q_last, k0, a.causal, a.n_img, i0_s, t0_s, t1_s)) continue;
-    __syncthreads();   // every warp is done with the previous tile
-    load_tile<DP>(Ks, kb, kv_stride, k0, S, D);
-    load_tile<DP>(Vs, vb, kv_stride, k0, S, D);
-    if (tid < kBlockN) {
-      const int key = k0 + tid;
-      valid_s[tid] = key < S && (a.kv_valid == nullptr || a.kv_valid[(size_t)b * S + key] != 0);
+    if (!visit(k0, q_first, q_last)) {
+      if (counter) atomicAdd(&a.tile_counts[kSkip], 1);
+      continue;
     }
-    __syncthreads();
+    int cls = has_rows && visit(k0, wg_first, wg_last) ? kPartial : kSkip;
+    mbar_wait(&full[stage], phase);
+    const uint64_t vmask = valid_s[stage];
+    if (cls != kSkip && vmask == ~0ull && (!causal || k0 + kBlockN - 1 <= wg_first))
+      cls = kFull;
+    if (counter) atomicAdd(&a.tile_counts[cls], 1);
 
-    float s[kNTiles][4], dp[kNTiles][4];
-    mma_abt<DP>(s, qf, Ks, g, t4);    // S  = Q K^T
-    mma_abt<DP>(dp, df, Vs, g, t4);   // dP = dO V^T
+    if (cls != kSkip) {
+      const uint32_t ks = k_base + stage * 2 * kTileBytes;
+      const uint32_t vs = v_base + stage * 2 * kTileBytes;
+      float s[32], dp[32];
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+      qk_product<DP>(s, q_base, ks);    // S  = Q K^T
+      qk_product<DP>(dp, d_base, vs);   // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // p and ds in place of dp; s[4 jt + 2 r + e] is row g + 8 r, key
+      // column 8 jt + 2 t4 + e
+      if (cls == kFull) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, kc = nt * 8 + 2 * t4 + (e & 1);
-        const bool ok = valid_s[kc] != 0 &&
-                        pair_allowed(row_abs[r], k0 + kc, a.causal, a.n_img, i0_s, t0_s, t1_s);
-        const float p = ok ? exp2f(s[nt][e] * a.scale_log2 - lse_r[r]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - delta_r[r]) * a.scale;   // dS
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          const float p = exp2_ftz(s[i] * sl2 - lse_r[r]);
+          dp[i] = p * (dp[i] - delta_r[r]) * scale;
+        }
+      } else {
+        // images whose text span holds key k0 + lane and k0 + 32 + lane
+        uint32_t kimg_lo = 0u, kimg_hi = 0u;
+        const bool rects = causal && n_img > 0;
+        if (rects) {
+          for (int n = 0; n < n_img; ++n) {
+            const int ka = k0 + lane, kb = k0 + 32 + lane;
+            kimg_lo |= static_cast<uint32_t>(ka >= t0_s[n] && ka < t1_s[n]) << n;
+            kimg_hi |= static_cast<uint32_t>(kb >= t0_s[n] && kb < t1_s[n]) << n;
+          }
+        }
+#pragma unroll
+        for (int jt = 0; jt < 8; ++jt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kc = jt * 8 + 2 * t4 + e;
+            const uint32_t kbits =
+                rects ? __shfl_sync(0xffffffffu, jt < 4 ? kimg_lo : kimg_hi, kc & 31) : 0u;
+            const bool kval = (vmask >> kc) & 1ull;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = jt * 4 + r * 2 + e;
+              const bool ok = kval && (!causal || k0 + kc <= row_abs[r] ||
+                                       (row_img[r] & kbits) != 0u);
+              const float p = ok ? exp2_ftz(s[i] * sl2 - lse_r[r]) : 0.f;
+              dp[i] = p * (dp[i] - delta_r[r]) * scale;
+            }
+          }
+        }
       }
+      uint32_t dsf[4][4];
+      to_frags(dsf, dp);
+      wgmma_fence();
+      pv_product<DP>(acc, dsf, ks);     // dQ += bf16(dS) K
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
     }
-    uint32_t dsf[4][4];
-    to_a(dsf, s);
-    mma_ab<DP>(acc, dsf, Ks, g, t4);  // dQ += bf16(dS) K
+    // this warp is done with the stage (wgmma.wait_group held every lane)
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
+  if (!has_rows) return;
 
-  __nv_bfloat16* dqb = a.dq + qbase;
+  const size_t q_stride = (size_t)a.H * a.D;
+  __nv_bfloat16* dqb = a.dq + ((size_t)b * T) * q_stride + (size_t)h * a.D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + rw + g + 8 * r;
+    const int row = r0 + wl * 16 + g + 8 * r;
     if (row >= T) continue;
+    __nv_bfloat16* drow = dqb + (size_t)row * q_stride;
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      const int d = dt * 8 + 2 * t4;
-      if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row * q_stride + d) =
-            __floats2bfloat162_rn(acc[dt][2 * r], acc[dt][2 * r + 1]);
+    for (int jt = 0; jt < DP / 8; ++jt) {
+      const int d = jt * 8 + 2 * t4;
+      if (d < a.D)
+        *reinterpret_cast<__nv_bfloat162*>(drow + d) =
+            __floats2bfloat162_rn(acc[jt * 4 + 2 * r], acc[jt * 4 + 2 * r + 1]);
     }
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_mma_dkv_kernel(Args a) {
-  constexpr int LD = DP + 8;
-  constexpr int DTILES = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + 64 * LD;
-  __nv_bfloat16* Qs = Vs + 64 * LD;
-  __nv_bfloat16* Ds = Qs + 64 * LD;   // dO
-  float* lse_s = reinterpret_cast<float*>(Ds + 64 * LD);
-  float* delta_s = lse_s + kBlockM;
-  int* valid_s = reinterpret_cast<int*>(delta_s + kBlockM);
-  int* i0_s = valid_s + kBlockN;
+// The walk of a dkv block over its (group head, query tile) pairs, the
+// same for the producer and the consumers: per head, from the first query
+// tile that the causal frontier or an MMA rectangle lets reach the block's
+// keys [k0, k0 + n), every tile that reaches them.
+struct DkvWalk {
+  int k0, n, off, T, causal, n_img, n_qt;
+  const int *i0, *t0, *t1;
+
+  __device__ __forceinline__ int start() const {
+    if (!causal) return 0;
+    // causal frontier: the first tile whose last row is at or past k0
+    const int x = k0 - off - 63;
+    int qi = x <= 0 ? 0 : (x + 63) / 64;
+    // an image whose text span meets the keys: the tile of its first row
+    // (the same rectangle test as reaches, which a tile must also pass)
+    for (int i = 0; i < n_img; ++i)
+      if (k0 < t1[i] && k0 + n > t0[i]) qi = min(qi, max(i0[i] - off, 0) / 64);
+    return min(qi, n_qt);
+  }
+  __device__ __forceinline__ bool visit(int qi) const {
+    const int first = off + qi * 64, last = off + min(qi * 64 + 64, T) - 1;
+    return reaches(k0, n, first, last, causal, n_img, i0, t0, t1);
+  }
+};
+
+template <int DP, int NC>
+__global__ void __launch_bounds__(dkv_threads<NC>(), NC == 1 ? 2 : 1)
+flash_mma_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  constexpr int BN = NC * 64;
+  constexpr int kStages = stages<NC>();
+  unsigned char* base = smem_base();
+  unsigned char* Ks = base;                              // [NC][2][64 x 128 B]
+  unsigned char* Vs = Ks + NC * 2 * kTileBytes;
+  unsigned char* Qs = Vs + NC * 2 * kTileBytes;          // [kStages][2]
+  unsigned char* Ds = Qs + kStages * 2 * kTileBytes;     // dO
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Ds + kStages * 2 * kTileBytes);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  float* lse_s = reinterpret_cast<float*>(empty + kStages);   // [kStages][64]
+  float* delta_s = lse_s + kStages * 64;
+  int* i0_s = reinterpret_cast<int*>(delta_s + kStages * 64);
   int* t0_s = i0_s + kMaxImages;
   int* t1_s = t0_s + kMaxImages;
 
-  const int k0 = blockIdx.x * kBlockN, hk = blockIdx.y, b = blockIdx.z;
+  const int T = a.T, S = a.S, causal = a.causal, n_img = a.n_img;
+  // causal: the first key tiles are reached by the most query tiles, and
+  // blockIdx.x runs first
+  const int k0 = blockIdx.x * BN, hk = blockIdx.y, b = blockIdx.z;
   const int group = a.H / a.Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3, kw = warp * 16;
-  const int T = a.T, S = a.S, D = a.D;
-  const size_t q_stride = (size_t)a.H * D, kv_stride = (size_t)a.Hkv * D;
-  const int qoff = a.q_offset[b];
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const int off = a.q_offset[b];
+  const int n_qt = (T + 63) / 64;
 
-  if (tid < a.n_img) {
-    i0_s[tid] = a.img_start[b * a.n_img + tid];
-    t0_s[tid] = a.txt_start[b * a.n_img + tid];
-    t1_s[tid] = a.txt_end[b * a.n_img + tid];
+  if (tid < n_img) {
+    i0_s[tid] = a.img_start[b * n_img + tid];
+    t0_s[tid] = a.txt_start[b * n_img + tid];
+    t1_s[tid] = a.txt_end[b * n_img + tid];
   }
-  const size_t kvbase = (size_t)b * S * kv_stride + (size_t)hk * D;
-  load_tile<DP>(Ks, a.k + kvbase, kv_stride, k0, S, D);
-  load_tile<DP>(Vs, a.v + kvbase, kv_stride, k0, S, D);
-  if (tid < kBlockN) {
-    const int key = k0 + tid;
-    valid_s[tid] = key < S && (a.kv_valid == nullptr || a.kv_valid[(size_t)b * S + key] != 0);
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // keys g and g + 8 of the warp's 16
-  const int key[2] = {k0 + kw + g, k0 + kw + g + 8};
-  const bool key_ok[2] = {valid_s[kw + g] != 0, valid_s[kw + g + 8] != 0};
+  const DkvWalk block{k0, BN, off, T, causal, n_img, n_qt, i0_s, t0_s, t1_s};
+  const int qi_start = block.start();
 
-  float dk[DTILES][4], dv[DTILES][4];
+  if (warp >= NC * 4) {
+    // producer warpgroup: its first warp works, lane 0 issuing the loads
+    // and the warp reading each q tile's lse and delta (rows past T: +inf,
+    // 0) into the stage
+    regs_dec<kProducerRegs>();
+    if (warp != NC * 4) return;
+    if (lane == 0) {
+      int bytes = 0;
+      for (int w = 0; w < NC; ++w)
+        if (k0 + 64 * w < S) bytes += 4 * kTileBytes;
+      mbar_expect_tx(kv_full, bytes);
+      for (int w = 0; w < NC; ++w)
+        if (k0 + 64 * w < S)
+          for (int c = 0; c < 2; ++c) {
+            tma_load(Ks + (w * 2 + c) * kTileBytes, &tm_k, kv_full, c * kChunk, hk, k0 + 64 * w, b);
+            tma_load(Vs + (w * 2 + c) * kTileBytes, &tm_v, kv_full, c * kChunk, hk, k0 + 64 * w, b);
+          }
+    }
+    int stage = 0, phase = 0;
+    for (int h = hk * group; h < (hk + 1) * group; ++h) {
+      const size_t row0 = ((size_t)b * a.H + h) * T;
+      for (int qi = qi_start; qi < n_qt; ++qi) {
+        if (!block.visit(qi)) continue;
+        const int q0 = qi * 64;
+        float lse_v[2], delta_v[2];
 #pragma unroll
-  for (int i = 0; i < DTILES; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-  }
-
-  const int n_qt = (T + kBlockM - 1) / kBlockM;
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const size_t qbase = (size_t)b * T * q_stride + (size_t)h * D;
-    const float* lse_h = a.lse + ((size_t)b * a.H + h) * T;
-    const float* delta_h = a.delta + ((size_t)b * a.H + h) * T;
-    for (int qi = 0; qi < n_qt; ++qi) {
-      const int q0 = qi * kBlockM;
-      const int q_first = qoff + q0, q_last = qoff + min(q0 + kBlockM, T) - 1;
-      if (!tile_visited(q_first, q_last, k0, a.causal, a.n_img, i0_s, t0_s, t1_s)) continue;
-      __syncthreads();   // every warp is done with the previous q tile
-      load_tile<DP>(Qs, a.q + qbase, q_stride, q0, T, D);
-      load_tile<DP>(Ds, a.dout + qbase, q_stride, q0, T, D);
-      if (tid < kBlockM) {
-        const int row = q0 + tid;
-        lse_s[tid] = row < T ? lse_h[row] : INFINITY;
-        delta_s[tid] = row < T ? delta_h[row] : 0.f;
-      }
-      __syncthreads();
-
-      float s[kNTiles][4], dp[kNTiles][4];
-      {
-        uint32_t af[DP / 16][4];
-        load_a<DP>(af, Ks, kw, g, t4);
-        mma_abt<DP>(s, af, Qs, g, t4);    // S^T  = K Q^T
-        load_a<DP>(af, Vs, kw, g, t4);
-        mma_abt<DP>(dp, af, Ds, g, t4);   // dP^T = V dO^T
-      }
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + 32 * r + lane;
+          lse_v[r] = row < T ? a.lse[row0 + row] : INFINITY;
+          delta_v[r] = row < T ? a.delta[row0 + row] : 0.f;
+        }
+        if (lane == 0) mbar_wait(&empty[stage], phase ^ 1);
+        __syncwarp();
 #pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, qc = nt * 8 + 2 * t4 + (e & 1);
-          const bool ok = key_ok[r] && q0 + qc < T &&
-                          pair_allowed(q_first + qc, key[r], a.causal, a.n_img, i0_s, t0_s, t1_s);
-          const float p = ok ? exp2f(s[nt][e] * a.scale_log2 - lse_s[qc]) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - delta_s[qc]) * a.scale;   // dS^T
+        for (int r = 0; r < 2; ++r) {
+          lse_s[stage * 64 + 32 * r + lane] = lse_v[r];
+          delta_s[stage * 64 + 32 * r + lane] = delta_v[r];
+        }
+        __syncwarp();   // the lanes' writes before lane 0's arrival publishes them
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], 4 * kTileBytes);
+          for (int c = 0; c < 2; ++c) {
+            tma_load(Qs + (stage * 2 + c) * kTileBytes, &tm_q, &full[stage], c * kChunk, h, q0, b);
+            tma_load(Ds + (stage * 2 + c) * kTileBytes, &tm_do, &full[stage], c * kChunk, h, q0, b);
+          }
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      uint32_t f[4][4];
-      to_a(f, s);
-      mma_ab<DP>(dv, f, Ds, g, t4);   // dV += bf16(P)^T dO
-      to_a(f, dp);
-      mma_ab<DP>(dk, f, Qs, g, t4);   // dK += bf16(dS)^T Q
     }
+    return;
   }
 
+  // consumers: warpgroup wg owns keys kw0 .. kw0 + 63; warp wl of it keys
+  // 16 wl .. 16 wl + 15, of which this thread holds g and g + 8 (the rows
+  // of S^T); the columns are the q tile's rows
+  regs_inc<dkv_consumer_regs<NC>()>();
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + wg * 64;
+  const bool has_keys = kw0 < S;
+  const bool counter = a.tile_counts != nullptr && has_keys && (tid & 127) == 0;
+  const int key[2] = {kw0 + wl * 16 + g, kw0 + wl * 16 + g + 8};
+  // the warpgroup's key validity, voted by each warp alike
+  const int* valid_b = a.kv_valid == nullptr ? nullptr : a.kv_valid + (size_t)b * S;
+  const int ka = kw0 + lane, kb = kw0 + 32 + lane;
+  const bool va = ka < S && (valid_b == nullptr || valid_b[ka] != 0);
+  const bool vb = kb < S && (valid_b == nullptr || valid_b[kb] != 0);
+  const uint64_t vmask = static_cast<uint64_t>(__ballot_sync(0xffffffffu, va)) |
+                         (static_cast<uint64_t>(__ballot_sync(0xffffffffu, vb)) << 32);
+  bool key_ok[2];
+  uint32_t key_img[2] = {0u, 0u};   // images whose text span holds the key
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_ok[r] = (vmask >> (wl * 16 + g + 8 * r)) & 1ull;
+    for (int n = 0; n < n_img; ++n)
+      if (key[r] >= t0_s[n] && key[r] < t1_s[n]) key_img[r] |= 1u << n;
+  }
+  const DkvWalk mine{kw0, kBlockN, off, T, causal, n_img, n_qt, i0_s, t0_s, t1_s};
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t k_base = smem_addr(Ks + wg * 2 * kTileBytes);
+  const uint32_t v_base = smem_addr(Vs + wg * 2 * kTileBytes);
+  const uint32_t q_ring = smem_addr(Qs), d_ring = smem_addr(Ds);
+  const float sl2 = a.scale_log2, scale = a.scale;
+  mbar_wait(kv_full, 0);
+
+  int stage = 0, phase = 0, walked = 0;
+  for (int h = hk * group; h < (hk + 1) * group; ++h) {
+    for (int qi = qi_start; qi < n_qt; ++qi) {
+      if (!block.visit(qi)) continue;
+      const int q_first = off + qi * 64;
+      int cls = has_keys && mine.visit(qi) ? kPartial : kSkip;
+      mbar_wait(&full[stage], phase);
+      if (cls != kSkip && vmask == ~0ull && (!causal || kw0 + kBlockN - 1 <= q_first))
+        cls = kFull;
+      if (counter) atomicAdd(&a.tile_counts[cls], 1);
+      ++walked;
+
+      if (cls != kSkip) {
+        const uint32_t qs = q_ring + stage * 2 * kTileBytes;
+        const uint32_t ds = d_ring + stage * 2 * kTileBytes;
+        const float* lse_t = lse_s + stage * 64;
+        const float* delta_t = delta_s + stage * 64;
+        float st[32], dpt[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+        wgmma_fence();
+        qk_product<DP>(st, k_base, qs);    // S^T  = K Q^T
+        qk_product<DP>(dpt, v_base, ds);   // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // st[4 jt + 2 r + e] is key g + 8 r, q column 8 jt + 2 t4 + e:
+        // p^T in place of st, ds^T in place of dpt
+        // images whose query span holds rows q_first + lane, + 32 + lane
+        uint32_t qimg_lo = 0u, qimg_hi = 0u;
+        const bool rects = cls == kPartial && causal && n_img > 0;
+        if (rects) {
+          for (int n = 0; n < n_img; ++n) {
+            const int ra = q_first + lane, rb = q_first + 32 + lane;
+            qimg_lo |= static_cast<uint32_t>(ra >= i0_s[n] && ra < t0_s[n]) << n;
+            qimg_hi |= static_cast<uint32_t>(rb >= i0_s[n] && rb < t0_s[n]) << n;
+          }
+        }
+#pragma unroll
+        for (int jt = 0; jt < 8; ++jt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qc = jt * 8 + 2 * t4 + e;
+            const float lse_c = lse_t[qc], delta_c = delta_t[qc];
+            const uint32_t qbits =
+                rects ? __shfl_sync(0xffffffffu, jt < 4 ? qimg_lo : qimg_hi, qc & 31) : 0u;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = jt * 4 + r * 2 + e;
+              const bool ok = cls == kFull ||
+                              (key_ok[r] && (!causal || key[r] <= q_first + qc ||
+                                             (key_img[r] & qbits) != 0u));
+              const float p = ok ? exp2_ftz(st[i] * sl2 - lse_c) : 0.f;
+              st[i] = p;
+              dpt[i] = p * (dpt[i] - delta_c) * scale;
+            }
+          }
+        }
+        uint32_t pf[4][4], sf[4][4];
+        to_frags(pf, st);
+        to_frags(sf, dpt);
+        wgmma_fence();
+        pv_product<DP>(dv, pf, ds);   // dV += bf16(P^T) dO
+        pv_product<DP>(dk, sf, qs);   // dK += bf16(dS^T) Q
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  // the (head, q tile) pairs this block never walked are skip tiles
+  if (counter) atomicAdd(&a.tile_counts[kSkip], group * n_qt - walked);
+  if (!has_keys) return;
+
+  const size_t kv_stride = (size_t)a.Hkv * a.D;
+  const size_t kvbase = ((size_t)b * S) * kv_stride + (size_t)hk * a.D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= S) continue;
-    const size_t base = kvbase + (size_t)key[r] * kv_stride;
+    const size_t rowb = kvbase + (size_t)key[r] * kv_stride;
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      const int d = dt * 8 + 2 * t4;
-      if (d < D) {
-        *reinterpret_cast<__nv_bfloat162*>(a.dk + base + d) =
-            __floats2bfloat162_rn(dk[dt][2 * r], dk[dt][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(a.dv + base + d) =
-            __floats2bfloat162_rn(dv[dt][2 * r], dv[dt][2 * r + 1]);
+    for (int jt = 0; jt < DP / 8; ++jt) {
+      const int d = jt * 8 + 2 * t4;
+      if (d < a.D) {
+        *reinterpret_cast<__nv_bfloat162*>(a.dk + rowb + d) =
+            __floats2bfloat162_rn(dk[jt * 4 + 2 * r], dk[jt * 4 + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(a.dv + rowb + d) =
+            __floats2bfloat162_rn(dv[jt * 4 + 2 * r], dv[jt * 4 + 2 * r + 1]);
       }
     }
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int smem, dim3 grid, const Args& args, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(args);
-  return (int)cudaGetLastError();
+// The tile counts that launches add to while a check has set them
+// (flash_mma_bwd_count_tiles); null otherwise.
+int* g_dq_counts = nullptr;
+int* g_dkv_counts = nullptr;
+
+// Rows (dq) or keys (dkv) per block: 128 once the grid of B * heads *
+// ceil(n / 128) blocks fills two waves of `sms`, else 64.
+int block_rows(int B, int n, int heads, int sms) {
+  return (long)B * heads * ((n + 127) / 128) >= 2L * sms ? 128 : 64;
 }
 
 bool bad_shape(int n_img, int B, int T, int S, int H, int Hkv, int D) {
@@ -432,16 +698,48 @@ bool bad_shape(int n_img, int B, int T, int S, int H, int Hkv, int D) {
          n_img > kMaxImages || B <= 0 || T <= 0 || S <= 0;
 }
 
-Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, void* dk, void* dv,
+template <int DP, int NC, bool DQ>
+int launch_nc(const CUtensorMap (&maps)[4], const Args& args, int B, int n, int heads,
+              cudaStream_t stream) {
+  constexpr int smem = DQ ? dq_smem_bytes<NC>() : dkv_smem_bytes<NC>();
+  auto kernel = DQ ? flash_mma_dq_kernel<DP, NC> : flash_mma_dkv_kernel<DP, NC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + NC * 64 - 1) / (NC * 64), heads, B);
+  kernel<<<grid, DQ ? threads<NC>() : dkv_threads<NC>(), smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], args);
+  return (int)cudaGetLastError();
+}
+
+// One of the two kernels (dq when DQ) over the n query rows (dq) or keys
+// (dkv) of B x heads.
+template <bool DQ>
+int launch(const void* q, const void* k, const void* v, const void* dout, const Args& args,
+           int B, int T, int S, int H, int Hkv, int D, cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap maps[4];
+  if (!head_map(&maps[0], q, B, T, H, D) || !head_map(&maps[1], dout, B, T, H, D) ||
+      !head_map(&maps[2], k, B, S, Hkv, D) || !head_map(&maps[3], v, B, S, Hkv, D))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int n = DQ ? T : S, heads = DQ ? H : Hkv;
+  const bool big = block_rows(B, n, heads, sms) > 64;
+  if (D <= 80)
+    return big ? launch_nc<80, 2, DQ>(maps, args, B, n, heads, stream)
+               : launch_nc<80, 1, DQ>(maps, args, B, n, heads, stream);
+  return big ? launch_nc<96, 2, DQ>(maps, args, B, n, heads, stream)
+             : launch_nc<96, 1, DQ>(maps, args, B, n, heads, stream);
+}
+
+Args make_args(const void* lse, const void* delta, void* dq, void* dk, void* dv,
                const void* kv_valid, const void* q_offset, const void* img_start,
-               const void* txt_start, const void* txt_end, int n_img, int T, int S, int H,
-               int Hkv, int D, int causal, float scale_log2, float scale) {
+               const void* txt_start, const void* txt_end, int* tile_counts, int n_img,
+               int T, int S, int H, int Hkv, int D, int causal, float scale_log2,
+               float scale) {
   Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.dq = static_cast<__nv_bfloat16*>(dq);
@@ -452,6 +750,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   a.img_start = static_cast<const int*>(img_start);
   a.txt_start = static_cast<const int*>(txt_start);
   a.txt_end = static_cast<const int*>(txt_end);
+  a.tile_counts = tile_counts;
   a.n_img = n_img; a.T = T; a.S = S; a.H = H; a.Hkv = Hkv; a.D = D; a.causal = causal;
   a.scale_log2 = scale_log2; a.scale = scale;
   return a;
@@ -463,11 +762,31 @@ extern "C" const char* flash_mma_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, dout (B,T,H,D), k, v (B,S,Hkv,D): contiguous bf16, D % 8 == 0, D in
-// 72..96, H % Hkv == 0. lse, delta (B,H,T) f32 (lse as the forward writes
-// it). kv_valid (B,S) int32 or null; q_offset (B,) int32; img_start /
-// txt_start / txt_end (B,n_img) int32, n_img <= kMaxImages. Writes dq
-// (B,T,H,D) bf16.
+// For checks: from now on every launch adds the tiles its consumer
+// warpgroups ran, by class, to dq_counts[0..2] (dq: per 64 rows with rows
+// < T and KV tile) and dkv_counts[0..2] (dkv: per 64 keys with keys < S,
+// query tile and head of the group): skip, full, partial, int32 on the
+// current device, one atomic per tile. Nulls stop it. Not for concurrent
+// callers.
+extern "C" void flash_mma_bwd_count_tiles(void* dq_counts, void* dkv_counts) {
+  g_dq_counts = static_cast<int*>(dq_counts);
+  g_dkv_counts = static_cast<int*>(dkv_counts);
+}
+
+// The query rows (dkv: keys) per block that the dq (dkv) kernel takes for
+// B x T query rows of H heads over S keys of Hkv heads on the current
+// device, or -1 when the device cannot be read.
+extern "C" int flash_mma_bwd_block_rows(int B, int T, int S, int H, int Hkv, int dkv) {
+  int sms = 0;
+  if (sm_count(&sms) != cudaSuccess) return -1;
+  return dkv ? block_rows(B, S, Hkv, sms) : block_rows(B, T, H, sms);
+}
+
+// q, dout (B,T,H,D), k, v (B,S,Hkv,D): contiguous bf16, 16-byte aligned,
+// D % 8 == 0, D in 72..96, H % Hkv == 0. lse, delta (B,H,T) f32 (lse as
+// the forward writes it). kv_valid (B,S) int32 or null; q_offset (B,)
+// int32; img_start / txt_start / txt_end (B,n_img) int32, n_img <=
+// kMaxImages. Writes dq (B,T,H,D) bf16.
 extern "C" int flash_mma_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
                                 void* dq, const void* kv_valid, const void* q_offset,
@@ -476,13 +795,11 @@ extern "C" int flash_mma_bwd_dq(const void* q, const void* k, const void* v,
                                 int Hkv, int D, int causal, float scale_log2, float scale,
                                 void* stream) {
   if (bad_shape(n_img, B, T, S, H, Hkv, D)) return (int)cudaErrorInvalidValue;
-  const Args args = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, kv_valid,
-                              q_offset, img_start, txt_start, txt_end, n_img, T, S, H, Hkv,
-                              D, causal, scale_log2, scale);
-  const dim3 grid((T + kBlockM - 1) / kBlockM, H, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 80) return launch(flash_mma_dq_kernel<80>, dq_smem_bytes<80>(), grid, args, st);
-  return launch(flash_mma_dq_kernel<96>, dq_smem_bytes<96>(), grid, args, st);
+  const Args args = make_args(lse, delta, dq, nullptr, nullptr, kv_valid, q_offset,
+                              img_start, txt_start, txt_end, g_dq_counts, n_img, T, S, H,
+                              Hkv, D, causal, scale_log2, scale);
+  return launch<true>(q, k, v, dout, args, B, T, S, H, Hkv, D,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // Shapes as flash_mma_bwd_dq; writes dk, dv (B,S,Hkv,D) bf16, each the sum
@@ -495,11 +812,9 @@ extern "C" int flash_mma_bwd_dkv(const void* q, const void* k, const void* v,
                                  int T, int S, int H, int Hkv, int D, int causal,
                                  float scale_log2, float scale, void* stream) {
   if (bad_shape(n_img, B, T, S, H, Hkv, D)) return (int)cudaErrorInvalidValue;
-  const Args args = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, kv_valid, q_offset,
-                              img_start, txt_start, txt_end, n_img, T, S, H, Hkv, D, causal,
-                              scale_log2, scale);
-  const dim3 grid((S + kBlockN - 1) / kBlockN, Hkv, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 80) return launch(flash_mma_dkv_kernel<80>, dkv_smem_bytes<80>(), grid, args, st);
-  return launch(flash_mma_dkv_kernel<96>, dkv_smem_bytes<96>(), grid, args, st);
+  const Args args = make_args(lse, delta, nullptr, dk, dv, kv_valid, q_offset, img_start,
+                              txt_start, txt_end, g_dkv_counts, n_img, T, S, H, Hkv, D,
+                              causal, scale_log2, scale);
+  return launch<false>(q, k, v, dout, args, B, T, S, H, Hkv, D,
+                       static_cast<cudaStream_t>(stream));
 }

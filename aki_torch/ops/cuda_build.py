@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``build/aki_torch/lib<name>-<hash>.so``
-at the root of the checkout; the hash covers the source and the flags, so
-an edited kernel is never served from a stale library. Importing this
-module builds nothing and needs neither ``nvcc`` nor a card.
+at the root of the checkout; the hash covers the source, every shared
+header ``csrc/*.cuh`` and the flags, so an edited kernel or header is never
+served from a stale library. Importing this module builds nothing and
+needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

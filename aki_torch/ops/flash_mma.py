@@ -37,7 +37,8 @@ from . import cuda_build
 from .attention import dense_attention
 from .flash_mma_args import (FLAT_HEAD_DIMS, LOG2E, ONE_TILE, check_kernel_inputs,
                              kernel_mask_args)
-from .flash_mma_bwd import flash_mma_backward_reference, flash_mma_lse_reference, run_backward
+from .flash_mma_bwd import (count_backward_tiles, flash_mma_backward_reference,
+                            flash_mma_lse_reference, run_backward)
 from .masks import MMASpec
 
 _lib = None
@@ -81,10 +82,11 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def flash_mma_forward(q, k, v, spec=None, kv_valid=None, q_offset=0, causal=True,
-                      scale=None, with_lse=False):
+                      scale=None, with_lse=False, mask_args=None):
     """The forward kernel on CUDA tensors (counted in
     ``flash_mma_attention.launches``): (out, lse), lse the base-2 row
-    logsumexp (B, H, T) f32 when ``with_lse``, else None. Not
+    logsumexp (B, H, T) f32 when ``with_lse``, else None. ``mask_args``:
+    ``kernel_mask_args`` of the mask, built here when None. Not
     differentiable: use :func:`flash_mma_attention`."""
     check_kernel_inputs("flash_mma", q, k, v)
     if scale is None:
@@ -92,7 +94,9 @@ def flash_mma_forward(q, k, v, spec=None, kv_valid=None, q_offset=0, causal=True
     b, t, h, _ = q.shape
     s, hkv = k.shape[1], k.shape[2]
     dev = q.device
-    valid, offset, coords, n_img = kernel_mask_args(spec, kv_valid, q_offset, b, s, dev)
+    if mask_args is None:
+        mask_args = kernel_mask_args(spec, kv_valid, q_offset, b, s, dev)
+    valid, offset, coords, n_img = mask_args
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev) if with_lse else None
     lib = _kernel_lib()
@@ -116,22 +120,28 @@ class FlashMMAFunction(torch.autograd.Function):
     the kernels on CUDA tensors, the plain versions on CPU tensors. The row
     logsumexp is computed and q, k, v, out kept only when q, k or v needs a
     gradient. The mask arguments (spec, kv_valid, q_offset) are small
-    integer tensors kept on the context; they get no gradient."""
+    integer tensors kept on the context; they get no gradient. On CUDA the
+    int32 tensors the kernels read are built once, for the forward kernel,
+    and kept for the backward's."""
 
     @staticmethod
     def forward(ctx, q, k, v, spec, kv_valid, q_offset, causal, scale):
         with_lse = any(ctx.needs_input_grad[:3])
+        mask_args = None
         if q.device.type == "cpu":
             out = flash_mma_attention_reference(q, k, v, spec, kv_valid, q_offset,
                                                 causal, scale)
             lse = (flash_mma_lse_reference(q, k, spec, kv_valid, q_offset, causal, scale)
                    if with_lse else None)
         else:
+            mask_args = kernel_mask_args(spec, kv_valid, q_offset, q.shape[0], k.shape[1],
+                                         q.device)
             out, lse = flash_mma_forward(q, k, v, spec, kv_valid, q_offset, causal,
-                                         scale, with_lse=with_lse)
+                                         scale, with_lse=with_lse, mask_args=mask_args)
         if with_lse:
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.mask = (spec, kv_valid, q_offset, causal, scale)
+            ctx.mask_args = mask_args
         return out
 
     @staticmethod
@@ -140,7 +150,8 @@ class FlashMMAFunction(torch.autograd.Function):
         if q.device.type == "cpu":
             grads = flash_mma_backward_reference(q, k, v, out, do, lse, *ctx.mask)
         else:
-            grads = run_backward(q, k, v, out, do.contiguous(), lse, *ctx.mask)
+            grads = run_backward(q, k, v, out, do.contiguous(), lse, *ctx.mask,
+                                 mask_args=ctx.mask_args)
         return (*grads, None, None, None, None, None)
 
 
@@ -177,21 +188,30 @@ def flash_mma_attention(
 flash_mma_attention.launches = 0
 
 
+TILE_COUNTERS = ("fwd", "dq", "dkv")   # the rows of count_tiles()'s tensor
+
+
 @contextlib.contextmanager
 def count_tiles(device="cuda"):
-    """For checks: while open, every launch of the forward kernel (K1, K2,
-    K6) adds the tiles its consumer warpgroups ran, by class, to the int32
-    tensor yielded, ``[skip, full, partial]`` in the units of
-    ``flash_mma_args.tile_classes`` (64 query rows x 64 keys) summed over
-    heads, batch rows and query tiles. It costs one atomic per tile; read
-    the tensor after the launches (it is on ``device``)."""
-    counts = torch.zeros(3, dtype=torch.int32, device=device)
+    """For checks: while open, every launch of the flash kernels adds the
+    tiles its consumer warpgroups ran, by class, to the int32 (3, 3) tensor
+    yielded: row ``TILE_COUNTERS.index(kernel)``, columns ``[skip, full,
+    partial]``, in the units of ``flash_mma_args.tile_classes`` (64 query
+    rows x 64 keys). The forward (K1, K2, K6) and ``dq`` count per query
+    tile and KV tile, summed over heads, batch rows and query tiles; ``dkv``
+    per KV tile and query tile of each head of its GQA group, so that every
+    kernel sums to the heads times the mirror's classes. It costs one
+    atomic per tile; read the tensor after the launches (it is on
+    ``device``)."""
+    counts = torch.zeros(len(TILE_COUNTERS), 3, dtype=torch.int32, device=device)
     lib = _kernel_lib()
-    lib.flash_mma_count_tiles(counts.data_ptr())
+    lib.flash_mma_count_tiles(counts[0].data_ptr())
+    count_backward_tiles(counts[1], counts[2])
     try:
         yield counts
     finally:
         lib.flash_mma_count_tiles(None)
+        count_backward_tiles(None, None)
 
 
 def forward_block_rows(b: int, t: int, h: int, d: int) -> int:

@@ -123,6 +123,10 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.flash_mma_bwd_dq.restype = lib.flash_mma_bwd_dkv.restype = i
         lib.flash_mma_bwd_error_string.argtypes = [i]
         lib.flash_mma_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_mma_bwd_count_tiles.argtypes = [p, p]
+        lib.flash_mma_bwd_count_tiles.restype = None
+        lib.flash_mma_bwd_block_rows.argtypes = [i] * 6
+        lib.flash_mma_bwd_block_rows.restype = i
         _lib = lib
     return _lib
 
@@ -143,6 +147,7 @@ def run_backward(
     q_offset: torch.Tensor | int = 0,
     causal: bool = True,
     scale: float | None = None,
+    mask_args: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of flash MMA attention on CUDA tensors: ``dq`` and
     ``dkv`` kernel launches, counted in ``run_backward.dq_launches`` and
@@ -150,7 +155,9 @@ def run_backward(
     bf16 contiguous; lse (B,H,T) f32 from the forward kernel. Raises on
     anything the kernels do not take (a non-contiguous ``do`` is the
     caller's to make contiguous). delta = rowsum(do * o) is computed here in
-    f32, outside the kernels, as the JAX package does."""
+    f32, outside the kernels, as the JAX package does. ``mask_args``: the
+    forward's ``kernel_mask_args`` of the same mask, when the caller kept
+    them (``FlashMMAFunction``); built here otherwise."""
     check_kernel_inputs("flash_mma_bwd", q, k, v, ("o", o), ("do", do))
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -161,8 +168,9 @@ def run_backward(
         raise ValueError(f"flash_mma_bwd: lse must be contiguous f32 {(b, h, t)} on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
     dev = q.device
-    valid, offset, coords, n_img = kernel_mask_args(
-        spec if causal else None, kv_valid, q_offset, b, s, dev)
+    if mask_args is None:
+        mask_args = kernel_mask_args(spec if causal else None, kv_valid, q_offset, b, s, dev)
+    valid, offset, coords, n_img = mask_args
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()   # (B, H, T)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -189,3 +197,19 @@ def run_backward(
 
 run_backward.dq_launches = 0
 run_backward.dkv_launches = 0
+
+
+def count_backward_tiles(dq_counts: torch.Tensor | None,
+                         dkv_counts: torch.Tensor | None) -> None:
+    """Point the kernels' tile counters at two int32 (3,) tensors on the
+    card (Nones stop them); see ``flash_mma.count_tiles``."""
+    _kernel_lib().flash_mma_bwd_count_tiles(_ptr(dq_counts), _ptr(dkv_counts))
+
+
+def backward_block_rows(b: int, t: int, s: int, h: int, hkv: int) -> tuple[int, int]:
+    """(query rows per ``dq`` block, keys per ``dkv`` block) that the
+    kernels take for ``b`` x ``t`` query rows of ``h`` heads over ``s``
+    keys of ``hkv`` heads on the current CUDA device."""
+    lib = _kernel_lib()
+    return (lib.flash_mma_bwd_block_rows(b, t, s, h, hkv, 0),
+            lib.flash_mma_bwd_block_rows(b, t, s, h, hkv, 1))

@@ -32,9 +32,17 @@ Phases, each fatal on failure:
      dkv) against the plain versions in bf16, at the training shape (2 x
      655 tokens: 512 text tokens, one <image> spliced to 144 vision tokens,
      the second row right-padded), the SigLIP non-causal shape and edge
-     cases, with times beside the bound, the plain backward and SDPA's
-     backward, and the forward with lse timed on the device alone beside
-     SDPA's forward;
+     cases of the backward's tile classes and walks (16 images with edges
+     at tile boundaries and one off, q_offset with T < S and kv_valid
+     holes, GQA 32/8 at the training length, dead rows, 128-row blocks at
+     both widths, base-2 score spreads past exp2's flush), each under a
+     time limit, with the tile classes each kernel ran (count_tiles) held
+     to the mirror and every class run by dq and dkv at widths 80 and 96;
+     at the training shape the pair's and the whole call's device times
+     (torch.profiler, by kernel name, and a CUDA-event burst), warm and
+     with a cold L2 (a 64 MB write before each call), beside the bound,
+     the plain backward and SDPA's backward timed the same ways, and the
+     forward with lse timed on the device alone beside SDPA's forward;
   7. whole-model gradients: aki_4b() at full width and depth (fp32 master
      weights, bf16 compute, remat) on one training batch, loss and
      gradients with the kernels against the plain attention, both against
@@ -81,6 +89,7 @@ Then one JSON line of kernels, the card line, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -88,6 +97,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -176,6 +186,13 @@ SERVE_FIRST_TOKEN_CHECKS, SERVE_FIRST_TOKEN_MIN, SERVE_GAP_FACTOR = 8, 4, 2.0
 KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd", "fused_quant", "decode_attention",
                   "flash_mma_q8")
 TRAIN_TEXT = 512          # text tokens per training row; one <image> -> 144
+# Phase 6: a backward case (forward, backward, plain versions) and its
+# timings each end within these seconds, or the script fails: the
+# producer and consumers of a kernel that walk different tile lists wait
+# forever; the L2 flush between cold calls writes FLUSH_BYTES (the L2 is
+# 50 MB; a train step's attention inputs, ~40 MB, arrive from HBM)
+BWD_CASE_SECONDS, BWD_TIMING_SECONDS = 120, 300
+FLUSH_BYTES = 64 << 20
 
 
 def log(*args):
@@ -387,11 +404,12 @@ def lse_gate(lse, q, k, kw) -> tuple[float, bool]:
 
 
 def tile_gate(label, counts, b, t, s, h, spec, kv_valid, q_offset, causal, width) -> dict:
-    """The tile classes that one forward launch ran, as the kernel counted
-    them (``counts`` from flash_mma.count_tiles: consumer warpgroups'
-    64 query rows x 64 keys, over heads, batch rows and query tiles), with
-    the padded width; fails the script unless they equal the classes of the
-    mirror flash_mma_args.tile_classes, for each of the ``h`` heads."""
+    """The tile classes that one kernel's launch ran, as the kernel counted
+    them (``counts``: its row of flash_mma.count_tiles, consumer
+    warpgroups' 64 query rows x 64 keys, over heads, batch rows and tiles),
+    with the padded width; fails the script unless they equal the classes
+    of the mirror flash_mma_args.tile_classes, for each of the ``h`` query
+    heads (the backward's dkv counts each head of a GQA group)."""
     from aki_torch.ops.flash_mma_args import TILE_CLASS_NAMES, tile_classes
 
     ran = counts.tolist()
@@ -404,20 +422,31 @@ def tile_gate(label, counts, b, t, s, h, spec, kv_valid, q_offset, causal, width
     return {"width": width, **dict(zip(TILE_CLASS_NAMES, ran))}
 
 
-def spread_qk(q, k, gen):
+def spread_qk(q, k, gen, distinct: bool = False):
     """q and k of q's and k's shapes whose scaled base-2 scores spread past
     126 along each row, so that exp2 in the kernel flushes some p and alpha
     to 0 where the plain version keeps them as subnormals: q near 2 in every
     lane, k near a per-key level drawn from [-2, 3], and level 8 at keys
     137, 237, ... (at head dim 96 a row max 141-283 above the other keys,
-    reached after two KV tiles whose max it passes by more than 126)."""
+    reached after two KV tiles whose max it passes by more than 126).
+
+    Those keys all point along (1, ..., 1), so where two of them share a
+    row's p, dq = sum ds k is a difference of two near-equal terms ~30
+    times its size, and one flipped bf16 rounding of a ds moves it by more
+    than the backward's gate, which scales with the largest dq, allows
+    (for the earlier mma.sync kernels as for these). ``distinct`` (the backward's
+    case) adds to every key a component of std 2 whose lanes sum to 0: the
+    scores move by well under one base-2 unit, and the keys point apart."""
     b, s, hkv, d = k.shape
     level = torch.rand(b, s, 1, 1, device="cuda", generator=gen) * 5 - 2
     level[:, 137::100] = 8.0
     noise = lambda x: 0.05 * torch.randn(x.shape, device="cuda", generator=gen)  # noqa: E731
     q = (2.0 + noise(q)).to(torch.bfloat16)
-    k = (level + noise(k)).to(torch.bfloat16)
-    return q, k
+    kf = level + noise(k)
+    if distinct:
+        r = 2.0 * torch.randn(k.shape, device="cuda", generator=gen)
+        kf = kf + r - r.mean(-1, keepdim=True)
+    return q, kf.to(torch.bfloat16)
 
 
 def ftz_band_terms(q, k, kw) -> int:
@@ -501,7 +530,7 @@ def kernel_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None,
             got = flash_mma_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     rec = dict(name=name, shape=[b, t, s, h, hkv, d], causal=causal,
-               tiles=tile_gate(name, counts, b, t, s, h, spec, kv_valid, q_offset, causal,
+               tiles=tile_gate(name, counts[0], b, t, s, h, spec, kv_valid, q_offset, causal,
                                80 if d <= 80 else 96),
                **forward_gates(f"kernel {name}", got, q, k, v, kw, zero_rows=zero_rows))
     if spread:
@@ -728,13 +757,72 @@ def sm_clock() -> str:
     raise SystemExit(f"chip_smoke: nvidia-smi cannot read {fields}")
 
 
+@contextlib.contextmanager
+def time_limit(label: str, seconds: float):
+    """Ends the script (exit 1, from a timer thread) unless the block
+    finishes within ``seconds``: a kernel whose producer and consumers walk
+    different lists of tiles waits on its ring forever, and a synchronize
+    with it."""
+    def expire():
+        log(f"chip_smoke: {label} did not finish within {seconds} s")
+        os._exit(1)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def cold_split_ms(fn, reps: int = 10) -> dict[str, float]:
+    """kernel_split_ms of ``fn`` with the L2 cache flushed before each call
+    by a FLUSH_BYTES read and write of a buffer of its own (bitwise_not, a
+    kernel no call under test runs, left out by name): the device time of
+    each kernel when its inputs arrive from HBM, as in a real step."""
+    buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def call():
+        buf.bitwise_not_()
+        fn()
+
+    return {n: ms for n, ms in kernel_split_ms(call, reps).items() if "bitwise_not" not in n}
+
+
+def gradient_gates(got, want, exact) -> tuple[dict, bool]:
+    """The kernels' (dq, dk, dv) against the plain backward's on the same
+    bf16 inputs, element-wise (G_ATOL of the largest |plain| + G_RTOL of
+    each), and against the f32 backward ``exact``: the kernel's mean |error|
+    within F32_ERR_RATIO of the plain version's. Returns the errors per
+    gradient and whether all passed."""
+    rec, ok = {}, True
+    for gname, g, w, x in zip(("dq", "dk", "dv"), got, want, exact):
+        diff = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        k_err = (g.float() - x).abs().mean().item()
+        p_err = (w.float() - x).abs().mean().item()
+        ok = ok and (bool(torch.isfinite(g).all())
+                     and bool((diff <= G_ATOL * scale + G_RTOL * w.float().abs()).all())
+                     and k_err <= F32_ERR_RATIO * p_err + 1e-7)
+        rec[gname] = dict(max_abs_err=diff.max().item(), max_abs=scale,
+                          mean_abs_err_vs_f32=k_err, plain_mean_abs_err_vs_f32=p_err)
+    return rec, ok
+
+
 def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=None,
-                  kv_valid=None, q_offset=0, timed=False, zero_rows=None):
+                  kv_valid=None, q_offset=0, timed=False, zero_rows=None, spread=False):
     """The forward kernel's lse and the dq/dkv kernels against the plain
-    versions on the card, in bf16; returns the case's record. ``zero_rows``
-    = (batch row, query rows) whose dq must come out exactly 0."""
-    from aki_torch.ops.flash_mma import flash_mma_attention_reference, flash_mma_forward
-    from aki_torch.ops.flash_mma_bwd import (flash_mma_backward_reference,
+    versions on the card, in bf16, with the tile classes each kernel ran
+    held to the mirror's (tile_gate) and the case under a time limit;
+    returns the case's record. ``zero_rows`` = (batch row, query rows) whose
+    dq must come out exactly 0; ``spread`` takes q and k from spread_qk.
+    ``timed``: the times of the pair, of the whole run_backward call and of
+    SDPA's backward, warm and with a cold L2 (see the phase-6 notes)."""
+    from aki_torch.ops.flash_mma import (TILE_COUNTERS, count_tiles,
+                                         flash_mma_attention_reference, flash_mma_forward)
+    from aki_torch.ops.flash_mma_bwd import (backward_block_rows,
+                                             flash_mma_backward_reference,
                                              flash_mma_lse_reference, run_backward)
     from aki_torch.ops.attention import attention_mask
     from aki_torch.ops.masks import MMASpec
@@ -744,20 +832,26 @@ def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=N
     k = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(torch.bfloat16)
     v = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(torch.bfloat16)
     do = torch.randn(b, t, h, d, device=dev, generator=gen).to(torch.bfloat16)
+    if spread:
+        q, k = spread_qk(q, k, gen, distinct=True)
     if rects is not None:
         spec = MMASpec(*(torch.tensor([[r[i] for r in rects]] * b, dtype=torch.int32,
                                       device=dev) for i in range(3)))
     kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
 
-    out, lse = flash_mma_forward(q, k, v, with_lse=True, **kw)
-    torch.cuda.synchronize()
+    with time_limit(f"backward case {name}", BWD_CASE_SECONDS):
+        with count_tiles() as counts:
+            out, lse = flash_mma_forward(q, k, v, with_lse=True, **kw)
+            got = run_backward(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+    width = 80 if d <= 80 else 96
+    tiles = {kn: tile_gate(f"backward {name} {kn}", counts[i], b, t, s, h, spec, kv_valid,
+                           q_offset, causal, width) for i, kn in enumerate(TILE_COUNTERS)}
     # the forward's output feeds delta = rowsum(dO * out) of both backwards
     # below, so a wrong out would pass their comparison: hold it first
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     o32 = flash_mma_attention_reference(q32, k32, v32, **kw)
     fwd = forward_gates(f"backward {name} forward with lse", out, q, k, v, kw, exact=o32)
-    got = run_backward(q, k, v, out, do, lse, **kw)
-    torch.cuda.synchronize()
     want = flash_mma_backward_reference(q, k, v, out, do, lse, **kw)
     lse_err, lse_ok = lse_gate(lse, q, k, kw)
     # the same backward in f32 on the same bf16 inputs, from its own f32
@@ -765,19 +859,11 @@ def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=N
     exact = flash_mma_backward_reference(q32, k32, v32, o32, do32,
                                          flash_mma_lse_reference(q32, k32, **kw), **kw)
     rec = dict(name=name, shape=[b, t, s, h, hkv, d], causal=causal, lse_max_abs_err=lse_err,
-               fwd_max_abs_err=fwd["max_abs_err"])
-    ok = lse_ok
-    for gname, g, w, x in zip(("dq", "dk", "dv"), got, want, exact):
-        diff = (g.float() - w.float()).abs()
-        scale = w.float().abs().max().item()
-        k_err = (g.float() - x).abs().mean().item()
-        p_err = (w.float() - x).abs().mean().item()
-        g_ok = (bool(torch.isfinite(g).all())
-                and bool((diff <= G_ATOL * scale + G_RTOL * w.float().abs()).all())
-                and k_err <= F32_ERR_RATIO * p_err + 1e-7)
-        rec[gname] = dict(max_abs_err=diff.max().item(), max_abs=scale,
-                          mean_abs_err_vs_f32=k_err, plain_mean_abs_err_vs_f32=p_err)
-        ok = ok and g_ok
+               fwd_max_abs_err=fwd["max_abs_err"], tiles=tiles,
+               block_rows=dict(zip(("dq", "dkv"), backward_block_rows(b, t, s, h, hkv))))
+    grads, g_ok = gradient_gates(got, want, exact)
+    rec.update(grads)
+    ok = lse_ok and g_ok
     if zero_rows is not None:
         ok = ok and bool((got[0][zero_rows[0], zero_rows[1]] == 0).all())
     rec["max_abs_err"] = max(rec[n]["max_abs_err"] for n in ("dq", "dk", "dv"))
@@ -786,10 +872,16 @@ def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=N
         + " ".join(f"{n}: max_abs_err={rec[n]['max_abs_err']:.4g} of max {rec[n]['max_abs']:.4g}, "
                    f"mean |err| vs f32 kernel {rec[n]['mean_abs_err_vs_f32']:.4g} "
                    f"plain {rec[n]['plain_mean_abs_err_vs_f32']:.4g};" for n in ("dq", "dk", "dv"))
-        + f" tol=|d|<={G_ATOL}*max+{G_RTOL}*|plain|, kernel <= {F32_ERR_RATIO}x plain vs f32 "
-        f"{'ok' if ok else 'FAILED'}")
+        + f" tol=|d|<={G_ATOL}*max+{G_RTOL}*|plain|, kernel <= {F32_ERR_RATIO}x plain vs f32; "
+        f"tiles {tiles}; block rows {rec['block_rows']} {'ok' if ok else 'FAILED'}")
     if not ok:
         raise SystemExit(f"chip_smoke: backward case {name} disagrees with the plain version")
+    if spread:
+        rec["exp2_flush_band_terms"] = n_band = ftz_band_terms(q, k, kw)
+        log(f"  {name} allowed terms 126-149 below their row's base-2 max "
+            f"(exp2 flushes them): {n_band}")
+        if n_band == 0:
+            raise SystemExit(f"chip_smoke: backward case {name} has no score in the flush band")
 
     if timed:
         allowed = attention_mask(b, t, s, dev, spec if causal else None, kv_valid, q_offset,
@@ -805,39 +897,86 @@ def backward_case(name, b, t, s, h, hkv, d, gen, causal=True, spec=None, rects=N
         sdpa_out = torch.nn.functional.scaled_dot_product_attention(
             qt, kr, vr, attn_mask=allowed[:, None])
         do_t = do.transpose(1, 2)
-        split = kernel_split_ms(lambda: run_backward(q, k, v, out, do, lse, **kw))
-        # the forward with lse at the same shape: its own bound (the lse
-        # written once on top of the forward's bytes), plain and SDPA times
-        f_flops, f_bytes = allowed_work(b, t, s, h, hkv, d, allowed, kv_valid is not None)
-        rec["fwd_lse_bound_ms"], rec["fwd_lse_bound_by"] = bound((f_flops,
-                                                                 f_bytes + 4 * b * h * t))
-        with torch.no_grad():
-            sdpa_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                qt, kr, vr, attn_mask=allowed[:, None])
-            rec["fwd_plain_ms"] = cuda_ms(lambda: flash_mma_attention_reference(q, k, v, **kw))
-            rec["fwd_library_ms"] = cuda_ms(sdpa_fwd)
-            rec["fwd_library_device_ms"] = device_ms(sdpa_fwd)
-        rec.update(
-            ms=cuda_ms(lambda: run_backward(q, k, v, out, do, lse, **kw)),
-            fwd_lse_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, with_lse=True, **kw)),
-            fwd_lse_device_ms=device_ms(lambda: flash_mma_forward(q, k, v, with_lse=True, **kw),
-                                        "flash_mma_fwd_kernel"),
-            plain_ms=cuda_ms(lambda: flash_mma_backward_reference(q, k, v, out, do, lse, **kw)),
-            library_ms=cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
-                                                           retain_graph=True)),
-            dq_ms=next((v_ for k_, v_ in split.items() if "flash_mma_dq" in k_), None),
-            dkv_ms=next((v_ for k_, v_ in split.items() if "flash_mma_dkv" in k_), None),
-            bound_flops=w_both[0], bound_bytes=w_both[1],
-        )
+        run = lambda: run_backward(q, k, v, out, do, lse, **kw)  # noqa: E731
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, (qt, kt, vt), do_t, retain_graph=True)
+        with time_limit(f"backward case {name} timing", BWD_TIMING_SECONDS):
+            # every kernel of each call by name, device time per call
+            split = kernel_split_ms(run)
+            seen = profiler_shortfall()
+            lib_split = kernel_split_ms(sdpa_bwd)
+            lib_seen = profiler_shortfall()
+            cold, lib_cold = cold_split_ms(run), cold_split_ms(sdpa_bwd)
+            # the forward with lse at the same shape: its own bound (the lse
+            # written once on top of the forward's bytes), plain and SDPA times
+            f_flops, f_bytes = allowed_work(b, t, s, h, hkv, d, allowed, kv_valid is not None)
+            rec["fwd_lse_bound_ms"], rec["fwd_lse_bound_by"] = bound((f_flops,
+                                                                     f_bytes + 4 * b * h * t))
+            with torch.no_grad():
+                sdpa_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    qt, kr, vr, attn_mask=allowed[:, None])
+                rec["fwd_plain_ms"] = cuda_ms(lambda: flash_mma_attention_reference(q, k, v, **kw))
+                rec["fwd_library_ms"] = cuda_ms(sdpa_fwd)
+                rec["fwd_library_device_ms"] = device_ms(sdpa_fwd)
+            pick = lambda sp, n: next((x for k_, x in sp.items() if n in k_), None)  # noqa: E731
+            rec.update(
+                ms=cuda_ms(run),
+                device_ms=sum(split.values()) if split else None,
+                burst_ms=burst_ms(run),
+                split_ms=split, profiler_launches_seen_of=seen,
+                fwd_lse_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, with_lse=True, **kw)),
+                fwd_lse_device_ms=device_ms(
+                    lambda: flash_mma_forward(q, k, v, with_lse=True, **kw),
+                    "flash_mma_fwd_kernel"),
+                plain_ms=cuda_ms(lambda: flash_mma_backward_reference(q, k, v, out, do, lse,
+                                                                      **kw)),
+                library_ms=cuda_ms(sdpa_bwd),
+                library_device_ms=sum(lib_split.values()) if lib_split else None,
+                library_burst_ms=burst_ms(sdpa_bwd),
+                library_split_ms=lib_split, library_profiler_launches_seen_of=lib_seen,
+                dq_ms=pick(split, "flash_mma_dq"), dkv_ms=pick(split, "flash_mma_dkv"),
+                cold_split_ms=cold, library_cold_split_ms=lib_cold,
+                cold_dq_ms=pick(cold, "flash_mma_dq"), cold_dkv_ms=pick(cold, "flash_mma_dkv"),
+                cold_device_ms=sum(cold.values()) if cold else None,
+                library_cold_device_ms=sum(lib_cold.values()) if lib_cold else None,
+                bound_flops=w_both[0], bound_bytes=w_both[1],
+            )
         rec["bound_ms"], rec["bound_by"] = bound(w_both)
         rec["dq_bound_ms"], rec["dq_bound_by"] = bound(w_dq)
         rec["dkv_bound_ms"], rec["dkv_bound_by"] = bound(w_dkv)
-        for key in ("ms", "dq_ms", "dkv_ms", "fwd_lse_ms", "plain_ms", "library_ms",
+        for key in ("ms", "device_ms", "burst_ms", "dq_ms", "dkv_ms", "cold_dq_ms",
+                    "cold_dkv_ms", "cold_device_ms", "split_ms", "cold_split_ms",
+                    "profiler_launches_seen_of", "plain_ms", "library_ms", "library_device_ms",
+                    "library_burst_ms", "library_cold_device_ms", "library_split_ms",
+                    "library_cold_split_ms", "library_profiler_launches_seen_of",
                     "bound_ms", "bound_by", "dq_bound_ms", "dkv_bound_ms", "bound_flops",
-                    "bound_bytes", "fwd_lse_device_ms", "fwd_lse_bound_ms", "fwd_lse_bound_by",
-                    "fwd_plain_ms", "fwd_library_ms", "fwd_library_device_ms"):
+                    "bound_bytes", "fwd_lse_ms", "fwd_lse_device_ms", "fwd_lse_bound_ms",
+                    "fwd_lse_bound_by", "fwd_plain_ms", "fwd_library_ms",
+                    "fwd_library_device_ms"):
             log(f"  {name} {key}={rec[key]}")
     return rec
+
+
+def backward_tile_coverage(records) -> dict:
+    """Which tile classes dq and dkv ran over the backward cases, per padded
+    width, as the kernels counted them (tile_gate); fails the script unless
+    each kernel ran skip, full and partial at widths 80 and 96."""
+    from aki_torch.ops.flash_mma_args import TILE_CLASS_NAMES
+
+    cover: dict = {}
+    for kn in ("dq", "dkv"):
+        for r in records:
+            tiles = r["tiles"][kn]
+            by = cover.setdefault(kn, {}).setdefault(tiles["width"],
+                                                     dict.fromkeys(TILE_CLASS_NAMES, 0))
+            for n in TILE_CLASS_NAMES:
+                by[n] += tiles[n]
+    ok = all(set(c) == {80, 96} and all(all(x.values()) for x in c.values())
+             for c in cover.values())
+    log(f"backward tile classes run, per kernel and width: {cover} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the backward's cases miss a tile class at some width")
+    return cover
 
 
 def launch_counts() -> dict[str, int]:
@@ -1532,7 +1671,7 @@ def flat_case(name, b, t, s, h, d, gen, causal=True, rects=None, lens=None, time
     view = lambda x: x.view(b, x.shape[1], h, FLAT_DP)  # noqa: E731
     rec = dict(name=name, shape=[b, t, s, h, FLAT_DP], head_dim=d, causal=causal,
                launches=launched,
-               tiles=tile_gate(f"K6 {name}", counts, b, t, s, h, spec, kv_valid, q_offset,
+               tiles=tile_gate(f"K6 {name}", counts[0], b, t, s, h, spec, kv_valid, q_offset,
                                causal, FLAT_DP),
                **forward_gates(f"K6 {name}", view(got), view(qf), view(kf), view(vf),
                                dict(kw, scale=d ** -0.5), zero_rows=zero_rows))
@@ -1579,7 +1718,7 @@ def flat_case(name, b, t, s, h, d, gen, causal=True, rects=None, lens=None, time
             log(f"  K6 {name} {key}={rec.get(key)}")
         # K1 on the unpadded tensors, SDPA on the same unpadded tensors
         rec["k1"] = dict(name=f"{name}_k1", shape=[b, t, s, h, h, d], causal=causal,
-                         tiles=tile_gate(f"{name}_k1", k1_counts, b, t, s, h, spec, kv_valid,
+                         tiles=tile_gate(f"{name}_k1", k1_counts[0], b, t, s, h, spec, kv_valid,
                                          q_offset, causal, 80 if d <= 80 else 96),
                          **forward_gates(f"kernel {name}_k1", k1, q, k, v, kw),
                          **time_forward(f"{name}_k1", q, k, v, kw, rounds))
@@ -2000,7 +2139,31 @@ def main() -> int:
                          q_offset=torch.tensor([100, 150], device="cuda"),
                          kv_valid=prefix_valid([140, 190], 200)),
            backward_case("siglip_ragged_valid", 2, 729, 768, 16, 16, 72, gen,
-                         causal=False, kv_valid=prefix_valid([729, 700], 768))]
+                         causal=False, kv_valid=prefix_valid([729, 700], 768)),
+           # edges of the backward's tile classes and walks
+           backward_case("images16_edges_d96", 1, 389, 389, 4, 4, 96, gen, rects=EDGE_RECTS_16,
+                         kv_valid=prefix_valid([389], 389)),
+           backward_case("qoffset_hole_d88", 2, 201, 389, 4, 4, 88, gen, rects=EDGE_RECTS_2,
+                         q_offset=torch.tensor([100, 188], device="cuda"),
+                         kv_valid=holed_valid([301, 389], 389, [[20], [70, 200]])),
+           backward_case("gqa_h32_hkv8_train_len", 2, t_full, t_full, 32, 8, ph.head_dim, gen,
+                         spec=tspec, kv_valid=tvalid.cuda()),
+           backward_case("hole_dead_rows_d72", 2, 150, 150, 4, 4, 72, gen,
+                         kv_valid=holed_valid([150, 0], 150, [[70], []]),
+                         zero_rows=(1, slice(None))),
+           # two-warpgroup blocks (128 rows or keys) at both widths
+           backward_case("big_grid_edges_d96", 12, 300, 389, 32, 32, 96, gen, rects=EDGE_RECTS_2,
+                         q_offset=89, kv_valid=holed_valid([389] * 6 + [300] * 6, 389,
+                                                           [[64]] * 12)),
+           backward_case("big_grid_tower_hole_d72", 8, 729, 729, 16, 16, 72, gen, causal=False,
+                         kv_valid=holed_valid([729] * 7 + [500], 729, [[]] * 7 + [[130]])),
+           # base-2 score spreads past 126: p that exp2 flushes to 0
+           backward_case("exp2_flush_spread_d96", 2, 389, 389, 4, 4, 96, gen, rects=EDGE_RECTS_2,
+                         spread=True)]
+    for c in bwd:
+        if c["name"].startswith("big_grid") and min(c["block_rows"].values()) <= 64:
+            raise SystemExit(f"chip_smoke: backward case {c['name']} ran 64-row blocks")
+    bwd_coverage = backward_tile_coverage(bwd)
     free_cuda()
     grads = whole_model_grads(cfg, batches[0])
     free_cuda()
@@ -2069,9 +2232,12 @@ def main() -> int:
     tb = bwd[0]
     per_step = train["steps"][0]["launches"]
     train_launches = {k: sum(st["launches"][k] for st in train["steps"]) for k in per_step}
-    bwd_note = ("plain_ms and library_ms are of the whole backward (dq and dkv "
-                "together: the plain backward, SDPA's backward); bound_ms is this kernel's "
-                "own work; ms from torch.profiler over 10 calls")
+    bwd_note = ("ms and cold_ms: this kernel's device time per call, torch.profiler over "
+                "10 calls (cold: a 64 MB write before each); plain_ms, library_ms (CUDA "
+                "events around one call) and library_device_ms / library_cold_device_ms "
+                "(every SDPA kernel of the call) are of the whole backward (the plain "
+                "backward, SDPA's backward through autograd); bound_ms is this kernel's "
+                "own work")
     record = {"kernels": [{
         "name": "flash_mma_fwd", "route": "cuda",
         "source": "aki_torch/csrc/flash_mma_fwd.cu",
@@ -2106,8 +2272,14 @@ def main() -> int:
                            for g in (("dq",) if kn == "dq" else ("dk", "dv"))),
         "ms": tb[f"{kn}_ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb[f"{kn}_bound_ms"],
         "bound_by": tb[f"{kn}_bound_by"], "library_ms": tb["library_ms"],
+        "cold_ms": tb[f"cold_{kn}_ms"],
+        **{k: tb[k] for k in ("library_device_ms", "library_burst_ms",
+                              "library_cold_device_ms")},
         "shape": "training " + "x".join(map(str, tb["shape"])),
-        "backward_ms": tb["ms"], "backward_bound_ms": tb["bound_ms"],
+        "backward_ms": tb["ms"], "backward_device_ms": tb["device_ms"],
+        "backward_burst_ms": tb["burst_ms"], "backward_cold_device_ms": tb["cold_device_ms"],
+        "backward_bound_ms": tb["bound_ms"],
+        "tile_coverage": bwd_coverage[kn],
         "note": bwd_note,
     } for kn in ("dq", "dkv")],
         "backward_cases": bwd, "whole_model": grads,

@@ -13,23 +13,39 @@ sizes the kernel uses:
   the kernel never leaves out a tile that the JAX ``_kernel`` computes
   with an allowed pair.
 Exact integer and boolean comparisons: no tolerance.
+
+The backward leaves out the same skip tiles (``csrc/flash_mma_bwd.cu``):
+over the same random specs, the plain backward with p zeroed on every pair
+of a skip tile gives dq, dk and dv equal to the unmodified plain backward,
+and both match the vjp of the JAX dense oracle (fp32, 1e-5 absolute and
+relative: the same math summed in another order).
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from aki_tpu.ops.attention import dense_attention as jax_dense
 from aki_tpu.ops.flash_mma import _mask_ok
+from aki_tpu.ops.masks import MMASpec as JaxSpec
+from aki_torch.ops import flash_mma_bwd
+from aki_torch.ops.flash_mma import flash_mma_attention_reference
 from aki_torch.ops.flash_mma_args import (FULL, PARTIAL, SKIP, TILE_CLASS_NAMES,
                                           tile_classes)
 from aki_torch.ops.masks import MMASpec, allowed_mask
 
 # (query rows, keys) per tile: a consumer warpgroup, a 192-row block, a
-# 128-row block (width 128), all over 64-key tiles
-BLOCKS = ((64, 64), (192, 64), (128, 64))
+# 128-row block (width 128; the backward's two-warpgroup dq block), all over
+# 64-key tiles; and the backward's two-warpgroup dkv block, 128 keys over
+# 64-row query tiles
+BLOCKS = ((64, 64), (192, 64), (128, 64), (64, 128))
+# the tiles that the backward's dq and dkv kernels leave out, per warpgroup
+# and per block
+BACKWARD_BLOCKS = ((64, 64), (128, 64), (64, 128))
 SEEDS = range(12)
 
 
@@ -162,3 +178,57 @@ def test_batch_and_offset_broadcast():
     assert per_row[0, 0].tolist() == [2, 0, 0, 0]
     assert per_row[1, 0].tolist() == [1, 1, 2, 0]
     assert tile_classes(None, None, 128, 64, 256, True).tolist() == [per_row[1].tolist()]
+
+
+def _grad_inputs(seed, h=2, d=8):
+    """fp32 q, do (B,T,H,D) and k, v (B,S,H,D) for ``_case(seed)``."""
+    spec, kv_valid, q_offset, t, s, causal = _case(seed)
+    rng = np.random.RandomState(100 + seed)
+    b = spec.batch
+    q, do = (rng.randn(b, t, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dense_grads(seed):
+    """(dq, dk, dv) of the JAX dense oracle for ``_case(seed)``."""
+    spec, kv_valid, q_offset, t, s, causal = _case(seed)
+    q, k, v, do = _grad_inputs(seed)
+    jspec = JaxSpec(*(jnp.asarray(x.numpy()) for x in (spec.img_start, spec.txt_start,
+                                                       spec.txt_end))) if causal else None
+    valid = None if kv_valid is None else jnp.asarray(kv_valid.numpy())
+
+    def loss(q_, k_, v_):
+        o = jax_dense(q_, k_, v_, spec=jspec, kv_valid=valid,
+                      q_offset=jnp.asarray(q_offset.numpy().astype(np.int32)), causal=causal)
+        return jnp.sum(o * jnp.asarray(do))
+    return tuple(np.asarray(g) for g in jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+
+
+@pytest.mark.parametrize("bm,bn", BACKWARD_BLOCKS)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_backward_skip_tiles_carry_no_gradient(seed, bm, bn, monkeypatch):
+    spec, kv_valid, q_offset, t, s, causal = _case(seed)
+    q, k, v, do = (torch.from_numpy(x) for x in _grad_inputs(seed))
+    kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
+    out = flash_mma_attention_reference(q, k, v, **kw)
+    lse = flash_mma_bwd.flash_mma_lse_reference(q, k, **kw)
+    plain = flash_mma_bwd.flash_mma_backward_reference(q, k, v, out, do, lse, **kw)
+
+    # every (row, key) pair of a skip tile, cut to the real rows and keys
+    cls = tile_classes(spec if causal else None, kv_valid, q_offset, t, s, causal, bm, bn)
+    skip = (cls == SKIP).repeat_interleave(bm, 1).repeat_interleave(bn, 2)[:, :t, :s]
+    scores = flash_mma_bwd._scores
+
+    def skip_zeroed(*args):
+        x, ok = scores(*args)
+        return x, ok & ~skip[:, None]
+
+    monkeypatch.setattr(flash_mma_bwd, "_scores", skip_zeroed)
+    skipped = flash_mma_bwd.flash_mma_backward_reference(q, k, v, out, do, lse, **kw)
+    for a, b_ in zip(plain, skipped):
+        assert torch.equal(a, b_), "a skip tile carries gradient"
+    for w, g in zip(_jax_dense_grads(seed), skipped):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
