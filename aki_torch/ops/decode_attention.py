@@ -17,6 +17,13 @@ header says what bounds it) and counts the launch in
 ``decode_attention_flat.launches``; it raises on what the kernel does not
 take and never falls back. On CPU tensors it runs the plain version,
 :func:`decode_attention_flat_reference`.
+
+The kernel splits each (head, row) over a cluster of C blocks: the
+wrapper picks C with :func:`cluster_size`, block r takes the keys of
+:func:`key_range`, and :func:`decode_attention_flat_split_reference`
+computes the same function in the kernel's order of sums (per-block
+scores, the cluster's max and sum, per-block f32 partials summed in rank
+order).
 """
 
 from __future__ import annotations
@@ -28,8 +35,51 @@ import torch
 from . import cuda_build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128          # the kernel's 8 lanes x 16 values per key
+MAX_HEAD_DIM = 128          # the kernel's head dims: multiples of 16 up to 128
+CLUSTER_SIZES = (1, 2, 4, 8)   # blocks per (head, row); 8 is the portable cluster
+SMEM_LIMIT = 232448 - (4 + 2 + 128) * 4   # dynamic shared memory of a block, H100
+_THREADS = 128
 _lib = None
+_sms: dict[int, int] = {}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile_keys(d: int) -> int:
+    """Keys of one ring stage: 128 threads, two to a key where D % 32 == 0."""
+    return _THREADS // (2 if d % 32 == 0 else 1)
+
+
+def smem_bytes(s_len: int, c: int, d: int) -> int:
+    """Dynamic shared memory of one block (``decode_attention.cu:smem_bytes``):
+    a ring of 4 key tiles, and the scores and V scales of a share of
+    ceil(S / C) keys rounded up to whole tiles."""
+    tk = _tile_keys(d)
+    share = _cdiv(_cdiv(s_len, c), tk) * tk
+    return 4 * tk * d + 2 * share * 4
+
+
+def cluster_size(pairs: int, sms: int, s_len: int, d: int) -> int:
+    """Blocks per (head, row) for ``pairs`` = live rows x heads on a card of
+    ``sms`` SMs: the least C that gives two waves of blocks (pairs * C >=
+    2 * sms) among the sizes whose shared memory fits, else the largest
+    that fits."""
+    fits = [c for c in CLUSTER_SIZES if smem_bytes(s_len, c, d) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"decode attention kernel: {s_len} slots do not fit a cluster of "
+                         f"{CLUSTER_SIZES[-1]} blocks")
+    return next((c for c in fits if pairs * c >= 2 * sms), fits[-1])
+
+
+def key_range(n: int, c: int, rank: int) -> tuple[int, int]:
+    """Keys [start, stop) of the live prefix of ``n`` keys that block
+    ``rank`` of a cluster of ``c`` takes (``decode_attention.cu``)."""
+    n = max(n, 0)
+    share = _cdiv(n, c)
+    start = min(rank * share, n)
+    return start, min(start + share, n)
 
 
 def quantize_kv_flat(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -86,17 +136,74 @@ def decode_attention_flat_reference(q, k, ks, v, vs, lengths, layer: int,
     return out
 
 
+def decode_attention_flat_split_reference(q, k, ks, v, vs, lengths, layer: int,
+                                          scale: float | None = None,
+                                          live_width: int | None = None,
+                                          cluster: int = 1) -> torch.Tensor:
+    """The function of :func:`decode_attention_flat_reference` summed in the
+    kernel's order: each row's live keys split by :func:`key_range` over
+    ``cluster`` blocks; each block's scores and max, the cluster's max, each
+    block's sum of exp, the cluster's sum (rank order); bf16(p * vs) from
+    the cluster's (max, sum); each block's P V in f32, the partials summed
+    in rank order. Same arguments and result as the plain version."""
+    b_full, _, h, d = q.shape
+    s_len, hkv = ks.shape[2], ks.shape[3]
+    if h % hkv or k.shape[-1] != hkv * d:
+        raise ValueError(f"decode attention: q {tuple(q.shape)} does not fit a cache row "
+                         f"of {k.shape[-1]} with {hkv} KV heads")
+    group = h // hkv
+    if scale is None:
+        scale = d ** -0.5
+    rows = b_full if live_width is None else min(live_width, b_full)
+    out = torch.zeros((b_full, 1, h, d), dtype=q.dtype, device=q.device)
+    for b in range(rows):
+        n = min(max(int(lengths[b]), 0), s_len)
+        if n == 0:
+            continue
+        qh = q[b, 0].to(torch.bfloat16).float()                                  # (H, D)
+        kb = k[layer, b, :n].reshape(n, hkv, d).float().repeat_interleave(group, 1)
+        vb = v[layer, b, :n].reshape(n, hkv, d).float().repeat_interleave(group, 1)
+        ksb = ks[layer, b, :n].repeat_interleave(group, 1)                        # (n, H)
+        vsb = vs[layer, b, :n].repeat_interleave(group, 1)
+        spans = [key_range(n, cluster, r) for r in range(cluster)]
+        scores = [torch.einsum("hd,jhd->hj", qh, kb[j0:j1]) * ksb[j0:j1].T * scale
+                  for j0, j1 in spans]
+        m = torch.full((h,), -torch.inf, device=q.device)
+        for sc in scores:
+            if sc.shape[1]:
+                m = torch.maximum(m, sc.amax(1))
+        e = [torch.exp(sc - m[:, None]) for sc in scores]
+        total = torch.zeros(h, device=q.device)
+        for ej in e:
+            total = total + ej.sum(1)
+        o = torch.zeros(h, d, device=q.device)
+        for (j0, j1), ej in zip(spans, e):
+            pv = (ej / total[:, None] * vsb[j0:j1].T).to(torch.bfloat16).float()
+            o = o + torch.einsum("hj,jhd->hd", pv, vb[j0:j1])
+        out[b, 0] = o.to(q.dtype)
+    return out
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = cuda_build.load("decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.decode_attention.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float, p]
+        lib.decode_attention.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float, i, p]
         lib.decode_attention.restype = i
+        lib.decode_attention_smem_bytes.argtypes = [i, i, i]
+        lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
         lib.decode_attention_error_string.argtypes = [i]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def _check(q, k, ks, v, vs, lengths, layer):
@@ -109,7 +216,7 @@ def _check(q, k, ks, v, vs, lengths, layer):
             or k.shape[3] != hkv * d or bc != b or h % hkv):
         raise ValueError(f"decode attention: cache {tuple(k.shape)} / scales {tuple(ks.shape)} "
                          f"do not fit q {tuple(q.shape)}")
-    if d % 16 or d > MAX_HEAD_DIM:
+    if d % 16 or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"decode attention kernel takes head dims that are multiples of 16 "
                          f"up to {MAX_HEAD_DIM}, got {d}")
     if not 0 <= layer < n_layers:
@@ -154,13 +261,14 @@ def decode_attention_flat(q, k, ks, v, vs, lengths, layer: int,
         raise ValueError(f"decode attention: live_width {live_width}")
     qb = q.contiguous()
     lens = lengths.to(torch.int32).contiguous()
+    cluster = cluster_size(rows * h, _sm_count(q.device), s_len, d)
     out = (torch.empty if rows == b else torch.zeros)(q.shape, dtype=q.dtype, device=q.device)
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
         rc = lib.decode_attention(
             qb.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
             lens.data_ptr(), out.data_ptr(), int(layer),
-            n_layers, b, rows, s_len, h, hkv, d, float(scale),
+            n_layers, b, rows, s_len, h, hkv, d, float(scale), cluster,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("decode_attention launch failed: "

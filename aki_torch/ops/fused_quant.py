@@ -21,6 +21,10 @@ header says what bounds it) and counts the launch in its ``launches``
 attribute; it raises on what the kernel does not take (rows other than
 bf16, for one) and never falls back.
 On CPU tensors it runs the plain version beside it (``*_reference``).
+
+The kernel gives each row to a team of warps that walks rows team, team +
+teams, ... of a persistent grid; :func:`row_plan` mirrors its launch plan
+and :func:`kernel_plan` asks the built kernel for it.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-# the kernel holds a row in registers: 256 threads x 4 chunks of 8 values
+# the kernel holds a row in the registers of a team of warps, at most this
+# many values a lane (gelu's tanhf needs the most registers)
 MAX_WIDTH = 8192
+LANE_VALUES = {"rms": 96, "ln": 96, "silu": 64, "gelu": 36}
 _OPS = {"rms": 0, "ln": 1, "silu": 2, "gelu": 3}
 _lib = None
 
@@ -45,6 +51,36 @@ def quantize_rows(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     s = torch.where(amax == 0, 1.0, amax / 127.0)
     q = torch.clamp(torch.round(h / s), -127, 127).to(torch.int8)
     return q, s
+
+
+def row_plan(op: str, rows: int, d: int, sms: int, per_sm: int) -> tuple[int, int, int]:
+    """(warps per row, teams per block, blocks) of a launch of ``op`` on
+    ``rows`` rows of width ``d`` on ``sms`` SMs where ``per_sm`` blocks fit
+    an SM (``fused_quant.cu:plan_team``, ``plan_op``). A row goes to a team
+    of one warp where a lane holds it in LANE_VALUES[op] values, else four,
+    else eight; of eight for few rows (up to 8 an SM); never fewer than one
+    chunk of 4 values a lane. Blocks are 4 warps (one team of 8), and team
+    ``t`` takes rows t, t + teams, ... of teams = blocks x teams per block."""
+    cap = LANE_VALUES[op]
+    team = 1 if d // 32 <= cap else 4 if d // 128 <= cap else 8
+    if rows <= 8 * sms:
+        team = 8
+    while team > 1 and d // 4 < 32 * team:
+        team = 4 if team == 8 else 1
+    tpb = 4 if team == 1 else 1
+    return team, tpb, min(-(-rows // tpb), sms * per_sm)
+
+
+def kernel_plan(op: str, rows: int, d: int) -> tuple[int, int, int, int, int]:
+    """The plan the built kernel would launch ``op`` with on the current
+    CUDA device: (warps per row, teams per block, blocks, blocks per SM,
+    ring stages)."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 5)()
+    rc = lib.fused_quant_plan(_OPS[op], rows, d, out)
+    if rc != 0:
+        raise RuntimeError("fused_quant_plan failed: " + lib.fused_quant_error_string(rc).decode())
+    return tuple(out)
 
 
 def _check_width(x: torch.Tensor) -> None:
@@ -88,6 +124,8 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_quant.argtypes = [i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
         lib.fused_quant.restype = i
+        lib.fused_quant_plan.argtypes = [i, i, i, p]
+        lib.fused_quant_plan.restype = i
         lib.fused_quant_error_string.argtypes = [i]
         lib.fused_quant_error_string.restype = ctypes.c_char_p
         _lib = lib

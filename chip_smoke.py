@@ -52,13 +52,21 @@ Phases, each fatal on failure:
      grad_norm, step ms, tokens/s, peak memory and launches per step;
   9. the fused "op + int8 quantize" kernels (rms, ln, silu*mul, gelu)
      against their plain versions at the W8A8 serving prefill's shapes (48
-     rows of 655 decoder tokens, 48 images of 729 patches), at phase 11's
-     one-request prefills and on edge rows, with times beside the bound;
+     rows of 655 decoder tokens, 48 images of 729 patches) and at phase
+     11's one-request prefills, each timed on the device warm and cold
+     (torch.profiler by kernel name; a 64 MB write before each cold call)
+     and by CUDA events beside the bound; then 1, 7 and 1101 rows and 7 rows
+     at widths 128 to 8192, with all-zero and huge edge rows; each launch
+     plan held to its mirror (fused_quant.row_plan);
  10. the int8-KV decode attention kernel against its plain version at the
      serving cache (32 layers, 48 rows, 704 slots, 32 heads x 96) with
      ragged lengths, both end layers, a live width below the rows and a GQA
-     case, and at phase 11's one-row caches (1024 and 1280 slots) at its
-     first and last decode lengths, with times beside the bound;
+     case, at phase 11's one-row caches (1024 and 1280 slots) at its first
+     and last decode lengths, and at every cluster size the wrapper picks
+     (1, 2, 4, 8 blocks per head and row) on lengths at the edges of the
+     split; timed full, ragged and at the one-row caches' last lengths on
+     the device over the 32 layers in turn (a decode step's reads), warm on
+     one layer, cold, and by CUDA events, beside the bound;
  11. int8 generation: aki_4b() at full width and depth quantized W8A8
      (tower included) with the int8 KV cache, its prefill logits against
      the bf16 and f32 runs of the same weights, and 32 greedy tokens for the
@@ -66,9 +74,11 @@ Phases, each fatal on failure:
  12. the serving engine as the JAX package's bench.py configures it (48
      slots, max_len 704, bucket 512, batched admission of 48, decode chunks
      of 8, W8A8, int8 KV, uint8 images, tail compaction, uploads of 16)
-     draining 96 requests, the tokens of the first 8 held to the one-shot
-     path (teacher-forced); the bf16-probability prefill attentions timed
-     against the flash kernel at the serving prefill shapes;
+     draining 96 requests under torch.profiler, with the decode and fused
+     quantize kernels' device ms and their launches seen of those issued,
+     the tokens of the first 8 held to the one-shot path (teacher-forced);
+     the bf16-probability prefill attentions timed against the flash kernel
+     at the serving prefill shapes;
  13. the two kernels no path of the package runs, through their wrappers at
      AKI-4B widths: the flat padded-head forward (K6) at the serving
      admission (48 rows of 655 decoder tokens, 32 heads x 128, MMA, ragged),
@@ -160,6 +170,12 @@ DRIFT_MEAN_MAX, DRIFT_MAX_MAX = 0.25, 2.0
 # prologue, then |h|, the max, the division, the rounding and the clamp)
 QUANT_OPS_PER_VALUE = {"rms": 10, "ln": 12, "silu": 11, "gelu": 16}
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BUCKET, SERVE_REQUESTS = 48, 704, 512, 96
+# Phase 9's edge widths: one chunk a lane up to one warp's widest and past it
+QUANT_EDGE_WIDTHS = (128, 1152, 3072, 4352, 8192)
+# Phase 10 must run the decode kernel at each cluster size it can launch
+CLUSTER_SIZES_WANT = (1, 2, 4, 8)
+# Phase 10's ragged lengths of the serving cache: one key, tile edges, full
+SERVE_RAGGED = [1, 63, 64, 65, 255, 511, 655, 704] * (SERVE_SLOTS // 8)
 # The port's kernels by a part of their device name, and the launch
 # counters (launch_counts, int8_launch_counts) that count their launches
 PORT_KERNEL_COUNTERS = {"flash_mma_fwd": ("fwd",), "flash_mma_dq": ("dq",),
@@ -204,6 +220,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def print_ptxas(name: str, report: str) -> None:
+    """The lines of an nvcc -Xptxas -v report that matter: each entry's
+    registers, spills, shared memory and any serialised-wgmma note."""
+    for line in report.splitlines():
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss",
+                                   "smem")):
+            log(f"  ptxas {name}:", line.strip())
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -302,6 +327,37 @@ def prompt_ids(cfg, n_txt: int, gen: torch.Generator) -> torch.Tensor:
     head = torch.tensor([1, 32010, cfg.media_token_id])
     tail = torch.tensor([32007, cfg.assistant_token_id])
     return torch.cat([head, text, tail])[None].to(torch.int32)
+
+
+def request_prompts(cfg) -> list[dict]:
+    """The two requests of phases 4 and 11: (a) ~60 text tokens with
+    max_len 1024, (b) ~900 with max_len 1280, their ids drawn from one seeded
+    generator, with the spliced length and the image rectangle of each."""
+    host_gen = torch.Generator().manual_seed(0)
+    requests = [dict(name="a", n_txt=60, max_len=1024),
+                dict(name="b", n_txt=900, max_len=1280)]
+    for r in requests:
+        r["ids"] = prompt_ids(cfg, r["n_txt"], host_gen)
+        r["t_full"], r["rect"] = request_spec(cfg, r["ids"], cfg.perceiver.num_latents)
+    return requests
+
+
+def quant_timing_shapes(cfg) -> list[tuple[str, int, int]]:
+    """(op, rows, width) of phase 9's timed fused quantize cases: the W8A8
+    serving prefill (48 rows of the bucket's spliced length through the
+    decoder, 48 images through the tower) and the one-request prefills
+    (the spliced lengths of request_prompts through the decoder, one image
+    through the tower)."""
+    ph, sg = cfg.phi3, cfg.siglip
+    rows_dec = SERVE_SLOTS * (SERVE_BUCKET + cfg.perceiver.num_latents - 1)
+    one_dec = [r["t_full"] for r in request_prompts(cfg)]
+    gelu_d = (sg.intermediate_size + 127) // 128 * 128
+    return [(op, rows, d) for op, d, big, small in (
+        ("rms", ph.hidden_size, rows_dec, one_dec),
+        ("silu", ph.intermediate_size, rows_dec, one_dec),
+        ("ln", sg.hidden_size, SERVE_SLOTS * sg.num_patches, [sg.num_patches]),
+        ("gelu", gelu_d, SERVE_SLOTS * sg.num_patches, [sg.num_patches]))
+        for rows in (big, *small)]
 
 
 def request_spec(cfg, ids: torch.Tensor, n_vis: int):
@@ -1151,12 +1207,38 @@ def zero_int8_launch_counts() -> None:
     decode_attention_flat.launches = flash_mma_attention.launches = 0
 
 
-def fused_quant_case(op, rows, d, gen, edge=False, timed=False) -> dict:
-    """Phase 9: one fused quantize kernel against its plain version on bf16
-    rows; ``edge`` makes row 0 all zero and gives row 1 one huge value.
+def kernel_ms(split: dict, part: str) -> float | None:
+    """The device ms per call of the kernels in ``split`` (kernel_split_ms)
+    whose name holds ``part``; None when the profiler saw none."""
+    picked = [ms for name, ms in split.items() if part in name]
+    return sum(picked) if picked else None
+
+
+def kernel_timings(fn, part: str, cycling=None) -> dict:
+    """Device ms per call of the kernels named ``part`` in ``fn``
+    (torch.profiler over 10 calls): ``device_ms`` warm, ``cold_device_ms``
+    with a FLUSH_BYTES write before each call, the launches the warm
+    session saw of those issued, and ``ms``, the call by CUDA events
+    (cuda_ms). With ``cycling`` (the same call walking the cache's layers
+    in turn, as a decode step reads them) ``device_ms`` and ``layers_ms``
+    are its times and the warm one is ``warm_device_ms``."""
+    rec = {}
+    if cycling is not None:
+        rec["device_ms"] = kernel_ms(kernel_split_ms(cycling), part)
+        rec["layers_ms"] = cuda_ms(cycling)
+    rec["warm_device_ms" if cycling is not None else "device_ms"] = kernel_ms(
+        kernel_split_ms(fn), part)
+    rec["profiler_seen_of"] = profiler_shortfall(part)
+    rec["cold_device_ms"] = kernel_ms(cold_split_ms(fn), part)
+    rec["ms"] = cuda_ms(fn)
+    return rec
+
+
+def fused_quant_inputs(op, rows, d, gen, edge=False):
+    """bf16 rows of one fused quantize op and its arguments; ``edge`` makes
+    row 0 all zero and gives row 1 (when there is one) one huge value.
     silu*mul reads gate and up as the two halves of one (rows, 2d) product,
     as the decoder hands them over."""
-    fn, ref = fused_quant_fns(op)
     dev = "cuda"
 
     def bf(*shape, lo=None):
@@ -1166,43 +1248,73 @@ def fused_quant_case(op, rows, d, gen, edge=False, timed=False) -> dict:
     x = bf(rows, 2 * d) if op == "silu" else bf(rows, d)
     if edge:
         x[0] = 0
-        x[1, 3] = 3e4
+        if rows > 1:
+            x[1, 3] = 3e4
     if op == "silu":
         x, up = x.chunk(2, dim=-1)
-    args = {"rms": lambda: (x, bf(d, lo=0.5), 1e-5),
+    return {"rms": lambda: (x, bf(d, lo=0.5), 1e-5),
             "ln": lambda: (x, bf(d, lo=0.5), bf(d) * 0.1, 1e-6),
             "silu": lambda: (x, up),
             "gelu": lambda: (x, bf(d) * 0.1)}[op]()
-    got = fn(*args)
-    torch.cuda.synchronize()
+
+
+def fused_quant_bound(op, rows, d) -> tuple[float, str, int, int]:
+    """(bound ms, by, FLOPs, bytes) of one fused quantize launch: each input
+    row and vector read once, q and s written once."""
+    n_vec = {"rms": 1, "ln": 2, "silu": 0, "gelu": 1}[op]
+    n_rows_in = 2 if op == "silu" else 1
+    nbytes = rows * d * 2 * n_rows_in + n_vec * d * 2 + rows * d + rows * 4
+    flops = QUANT_OPS_PER_VALUE[op] * rows * d
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def fused_quant_case(op, rows, d, gen, edge=False, timed=False) -> dict:
+    """Phase 9: one fused quantize kernel against its plain version on bf16
+    rows (fused_quant_inputs), its launch plan held to the mirror
+    (fused_quant.row_plan) and every row written; ``timed`` adds the
+    kernel's device times warm and cold (kernel_timings) and the plain
+    version's beside the bound."""
+    from aki_torch.ops import fused_quant as fq
+
+    fn, ref = fused_quant_fns(op)
+    args = fused_quant_inputs(op, rows, d, gen, edge)
+    with time_limit(f"fused quant {op} rows={rows} d={d}", BWD_CASE_SECONDS):
+        got = fn(*args)
+        torch.cuda.synchronize()
     want = ref(*args)
     dq = (got[0].int() - want[0].int()).abs()
     srel = ((got[1] - want[1]).abs() / want[1]).max().item()
+    plan = fq.kernel_plan(op, rows, d)
+    mirror = fq.row_plan(op, rows, d, torch.cuda.get_device_properties(0).multi_processor_count,
+                         plan[3])
     ok = (got[0].dtype == torch.int8 and got[1].shape == (rows, 1)
-          and dq.max().item() <= QUANT_STEP_MAX and srel <= QUANT_SCALE_RTOL)
+          and dq.max().item() <= QUANT_STEP_MAX and srel <= QUANT_SCALE_RTOL
+          and tuple(plan[:3]) == mirror)
     if edge and op in ("rms", "silu"):
         # an all-zero row quantizes to zeros with scale 1 (ln and gelu add a bias)
         ok = ok and bool((got[0][0] == 0).all()) and got[1][0].item() == 1.0
+    team, tpb, blocks, per_sm, stages = plan
     rec = dict(name=op, rows=rows, d=d, edge=edge, max_abs_err=dq.max().item(),
-               frac_one_step=(dq > 0).float().mean().item(), scale_max_rel_err=srel)
+               frac_one_step=(dq > 0).float().mean().item(), scale_max_rel_err=srel,
+               plan=dict(warps_per_row=team, teams_per_block=tpb, blocks=blocks,
+                         blocks_per_sm=per_sm, ring_stages=stages,
+                         rows_per_team_max=-(-rows // (blocks * tpb))))
     log(f"fused quant {op} rows={rows} d={d} edge={edge}: max |q_kernel - q_plain|="
         f"{rec['max_abs_err']} (max {QUANT_STEP_MAX}) fraction one step off="
         f"{rec['frac_one_step']:.3g} scale max rel err={srel:.3g} (max {QUANT_SCALE_RTOL}) "
-        f"{'ok' if ok else 'FAILED'}")
+        f"plan {rec['plan']} (mirror {mirror}) {'ok' if ok else 'FAILED'}")
     if not ok:
         raise SystemExit(f"chip_smoke: fused quant kernel {op} disagrees with the plain version")
     if timed:
-        n_vec = {"rms": 1, "ln": 2, "silu": 0, "gelu": 1}[op]
-        n_rows_in = 2 if op == "silu" else 1
-        nbytes = rows * d * 2 * n_rows_in + n_vec * d * 2 + rows * d + rows * 4
-        work = (QUANT_OPS_PER_VALUE[op] * rows * d, nbytes)
-        t_ops, t_bytes = work[0] / PEAK_F32_FLOPS * 1e3, work[1] / PEAK_HBM_BYTES * 1e3
-        rec.update(ms=cuda_ms(lambda: fn(*args)), plain_ms=cuda_ms(lambda: ref(*args)),
-                   library_ms=None, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   bound_flops=work[0], bound_bytes=work[1])
-        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes"):
-            log(f"  fused quant {op} {key}={rec[key]}")
+        bound_ms, by, flops, nbytes = fused_quant_bound(op, rows, d)
+        rec.update(kernel_timings(lambda: fn(*args), "fused_quant"))
+        rec.update(plain_ms=cuda_ms(lambda: ref(*args), reps=5), library_ms=None,
+                   bound_ms=bound_ms, bound_by=by, bound_flops=flops, bound_bytes=nbytes)
+        log(f"  fused quant {op} rows={rows} d={d} " + " ".join(
+            f"{key}={rec[key]}" for key in ("ms", "device_ms", "cold_device_ms",
+                                            "profiler_seen_of", "plain_ms", "bound_ms",
+                                            "bound_by", "bound_bytes")))
     return rec
 
 
@@ -1225,15 +1337,8 @@ def decode_f32(q, k, ks, v, vs, lengths, layer, live_width=None):
     return out
 
 
-def decode_case(name, n_layers, b, s_len, h, hkv, d, lengths, layers, gen, live_width=None,
-                timed=False) -> dict:
-    """Phase 10: the int8-KV decode kernel against its plain version on one
-    random cache, at each of ``layers``; element-wise and against attention in
-    f32 over the dequantized cache; rows past ``live_width`` and rows of
-    length 0 must come out 0."""
-    from aki_torch.ops.decode_attention import (decode_attention_flat,
-                                                decode_attention_flat_reference)
-
+def decode_inputs(n_layers, b, s_len, h, hkv, d, gen):
+    """A random int8 cache with its scales and a bf16 query: (q, k, ks, v, vs)."""
     dev = "cuda"
     shape, sshape = (n_layers, b, s_len, hkv * d), (n_layers, b, s_len, hkv)
     k = torch.randint(-127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
@@ -1241,57 +1346,219 @@ def decode_case(name, n_layers, b, s_len, h, hkv, d, lengths, layers, gen, live_
     ks = torch.rand(sshape, device=dev, generator=gen) * 0.02 + 1e-3
     vs = torch.rand(sshape, device=dev, generator=gen) * 0.02 + 1e-3
     q = torch.randn(b, 1, h, d, device=dev, generator=gen).to(torch.bfloat16)
-    lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    return q, k, ks, v, vs
+
+
+def decode_gates(got, want, exact, lens, live_width) -> dict:
+    """The decode kernel's output against the plain version's, element-wise
+    (ATOL + RTOL of each), and against attention in f32 over the
+    dequantized cache (mean |error| within F32_ERR_RATIO of the plain
+    version's); rows past ``live_width`` and rows of length 0 must be 0."""
+    rows = got.shape[0] if live_width is None else live_width
+    diff = (got.float() - want.float()).abs()
+    k_err = (got.float() - exact)[:rows].abs().mean().item()
+    p_err = (want.float() - exact)[:rows].abs().mean().item()
+    dead = torch.cat([got[rows:].flatten(), got[:rows][lens[:rows] == 0].flatten()])
+    dead_zero = bool((dead == 0).all())
+    ok = (bool(torch.isfinite(got).all())
+          and bool((diff <= ATOL + RTOL * want.float().abs()).all())
+          and k_err <= F32_ERR_RATIO * p_err + 1e-7 and dead_zero)
+    return dict(ok=ok, max_abs_err=diff.max().item(), mean_abs_err_vs_f32=k_err,
+                plain_mean_abs_err_vs_f32=p_err, dead_rows_zero=dead_zero)
+
+
+def decode_work(lens, rows, b, s_len, h, hkv, d) -> tuple[int, int]:
+    """(FLOPs, bytes) of one decode launch: 4*d per (query head, live key)
+    for QK and PV; each live key's K and V rows and scales read once, q
+    read and the output written once."""
+    live = sum(min(max(n, 0), s_len) for n in lens[:rows])
+    return (4 * d * h * live,
+            live * (2 * hkv * d + 2 * 4 * hkv) + rows * h * d * 2 + b * h * d * 2 + b * 4)
+
+
+def decode_times(q, k, ks, v, vs, lens_t, lens_l, live_width=None, layer=1) -> dict:
+    """The decode kernel's times on one cache: kernel_timings at ``layer``
+    (warm: the same layer again and again; cold: after a 64 MB write) and
+    over the layers in turn (a decode step's reads; each layer of a
+    one-request cache fits the L2, all of them do not), the plain version
+    by CUDA events, and the bound."""
+    import itertools
+
+    from aki_torch.ops.decode_attention import (decode_attention_flat,
+                                                decode_attention_flat_reference)
+
+    n_layers, b, s_len, hkv = ks.shape
+    h, d = q.shape[2], q.shape[3]
     rows = b if live_width is None else live_width
-    rec = dict(name=name, cache=list(shape), heads=[h, hkv, d], live_width=live_width,
-               lengths=lengths, layers=[])
+    turn = itertools.count()
+    rec = kernel_timings(
+        lambda: decode_attention_flat(q, k, ks, v, vs, lens_t, layer, live_width=live_width),
+        "decode_attention",
+        cycling=lambda: decode_attention_flat(q, k, ks, v, vs, lens_t, next(turn) % n_layers,
+                                              live_width=live_width))
+    w = decode_work(lens_l, rows, b, s_len, h, hkv, d)
+    t_ops, t_bytes = w[0] / PEAK_BF16_FLOPS * 1e3, w[1] / PEAK_HBM_BYTES * 1e3
+    rec.update(plain_ms=cuda_ms(lambda: decode_attention_flat_reference(
+        q, k, ks, v, vs, lens_t, layer, live_width=live_width), reps=5),
+        library_ms=None, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes", bound_flops=w[0],
+        bound_bytes=w[1])
+    return rec
+
+
+def decode_case(name, n_layers, b, s_len, h, hkv, d, lengths, layers, gen, live_width=None,
+                timed=None) -> dict:
+    """Phase 10: the int8-KV decode kernel against its plain version on one
+    random cache, at each of ``layers`` (decode_gates), with the cluster
+    size the wrapper picks; ``timed`` maps labels to lengths to time at
+    (decode_times)."""
+    from aki_torch.ops import decode_attention as da
+
+    q, k, ks, v, vs = decode_inputs(n_layers, b, s_len, h, hkv, d, gen)
+    lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
+    rows = b if live_width is None else live_width
+    cluster = da.cluster_size(rows * h, da._sm_count(q.device), s_len, d)
+    smem = da._kernel_lib().decode_attention_smem_bytes(s_len, cluster, d)
+    if smem != da.smem_bytes(s_len, cluster, d):
+        raise SystemExit(f"chip_smoke: decode_attention.cu sizes {smem} bytes of shared memory, "
+                         f"its mirror {da.smem_bytes(s_len, cluster, d)}")
+    rec = dict(name=name, cache=list(k.shape), heads=[h, hkv, d], live_width=live_width,
+               lengths=lengths, cluster=cluster, smem_bytes=smem, layers=[])
     for layer in layers:
-        got = decode_attention_flat(q, k, ks, v, vs, lens, layer, live_width=live_width)
-        torch.cuda.synchronize()
-        want = decode_attention_flat_reference(q, k, ks, v, vs, lens, layer, live_width=live_width)
-        exact = decode_f32(q, k, ks, v, vs, lens, layer, live_width)
-        diff = (got.float() - want.float()).abs()
-        k_err = (got.float() - exact)[:rows].abs().mean().item()
-        p_err = (want.float() - exact)[:rows].abs().mean().item()
-        dead = torch.cat([got[rows:].flatten(), got[:rows][lens[:rows] == 0].flatten()])
-        ok = (bool(torch.isfinite(got).all())
-              and bool((diff <= ATOL + RTOL * want.float().abs()).all())
-              and k_err <= F32_ERR_RATIO * p_err + 1e-7 and bool((dead == 0).all()))
-        rec["layers"].append(dict(layer=layer, max_abs_err=diff.max().item(),
-                                  mean_abs_err_vs_f32=k_err, plain_mean_abs_err_vs_f32=p_err))
-        log(f"decode {name} layer {layer}: q={tuple(q.shape)} cache={shape} live_width="
-            f"{live_width} max_abs_err={diff.max().item():.4g} (tol |d|<={ATOL}+{RTOL}*|plain|); "
-            f"mean |err| vs f32 kernel {k_err:.4g} plain {p_err:.4g} (kernel <= "
-            f"{F32_ERR_RATIO}x plain); dead rows zero {bool((dead == 0).all())} "
-            f"{'ok' if ok else 'FAILED'}")
-        if not ok:
+        with time_limit(f"decode {name} layer {layer}", BWD_CASE_SECONDS):
+            got = da.decode_attention_flat(q, k, ks, v, vs, lens, layer, live_width=live_width)
+            torch.cuda.synchronize()
+        want = da.decode_attention_flat_reference(q, k, ks, v, vs, lens, layer,
+                                                  live_width=live_width)
+        gate = decode_gates(got, want, decode_f32(q, k, ks, v, vs, lens, layer, live_width),
+                            lens, live_width)
+        rec["layers"].append(dict(layer=layer, **gate))
+        log(f"decode {name} layer {layer}: q={tuple(q.shape)} cache={tuple(k.shape)} "
+            f"live_width={live_width} cluster={cluster} max_abs_err={gate['max_abs_err']:.4g} "
+            f"(tol |d|<={ATOL}+{RTOL}*|plain|); mean |err| vs f32 kernel "
+            f"{gate['mean_abs_err_vs_f32']:.4g} plain {gate['plain_mean_abs_err_vs_f32']:.4g} "
+            f"(kernel <= {F32_ERR_RATIO}x plain); dead rows zero {gate['dead_rows_zero']} "
+            f"{'ok' if gate['ok'] else 'FAILED'}")
+        if not gate["ok"]:
             raise SystemExit(f"chip_smoke: decode kernel case {name} disagrees with plain")
     rec["max_abs_err"] = max(r["max_abs_err"] for r in rec["layers"])
-
-    def work(lens_):
-        """(FLOPs, bytes) of one launch: 4*d per (query head, live key) for
-        QK and PV; each live key's K and V rows and scales read once, q read
-        and the output written once."""
-        live = sum(min(max(n, 0), s_len) for n in lens_[:rows])
-        return (4 * d * h * live,
-                live * (2 * hkv * d + 2 * 4 * hkv) + rows * h * d * 2 + b * h * d * 2 + b * 4)
-
-    if timed:
-        full = torch.full((b,), s_len, device=dev, dtype=torch.int32)
-        for label, lens_t, lens_l in (("full", full, [s_len] * b), ("ragged", lens, lengths)):
-            w = work(lens_l)
-            t_ops, t_bytes = w[0] / PEAK_BF16_FLOPS * 1e3, w[1] / PEAK_HBM_BYTES * 1e3
-            rec[label] = dict(
-                ms=cuda_ms(lambda: decode_attention_flat(q, k, ks, v, vs, lens_t, 1,
-                                                         live_width=live_width)),
-                plain_ms=cuda_ms(lambda: decode_attention_flat_reference(
-                    q, k, ks, v, vs, lens_t, 1, live_width=live_width), reps=5),
-                library_ms=None, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bound_flops=w[0], bound_bytes=w[1])
-            log(f"  decode {name} {label} lengths: " + " ".join(
-                f"{key}={val}" for key, val in rec[label].items()))
+    for label, lens_l in (timed or {}).items():
+        lens_t = torch.tensor(lens_l, device="cuda", dtype=torch.int32)
+        with time_limit(f"decode {name} {label} timings", BWD_TIMING_SECONDS):
+            rec[label] = decode_times(q, k, ks, v, vs, lens_t, lens_l, live_width)
+        log(f"  decode {name} {label} lengths: " + " ".join(
+            f"{key}={val}" for key, val in rec[label].items()))
     return rec
+
+
+def fused_quant_phase(cfg, gen) -> dict[str, list]:
+    """Phase 9: each fused quantize kernel at the W8A8 serving prefill's
+    shape and at the one-request prefills of phase 11 (quant_timing_shapes),
+    timed; then edge cases: 1 row, 7 rows, 1101 rows (a block part empty),
+    and 7 rows at each of QUANT_EDGE_WIDTHS, all but 1 row with edge rows."""
+    fq_cases = {op: [] for op in FUSED_QUANT_REPLACES}
+    for op, rows, d in quant_timing_shapes(cfg):
+        fq_cases[op].append(fused_quant_case(op, rows, d, gen, edge=True, timed=True))
+        free_cuda()
+    for op, cases_op in fq_cases.items():
+        d = cases_op[0]["d"]
+        cases_op += [fused_quant_case(op, 1, d, gen),
+                     *(fused_quant_case(op, n, d, gen, edge=True) for n in (7, 1101)),
+                     *(fused_quant_case(op, 7, w, gen, edge=True) for w in QUANT_EDGE_WIDTHS
+                       if w != d)]
+        free_cuda()
+    return fq_cases
+
+
+def decode_phase(cfg, prompts, gen) -> list[dict]:
+    """Phase 10: the int8-KV decode kernel at the serving cache (timed full
+    and ragged), below its live width, GQA 32/8, at phase 11's one-request
+    caches at the first and the last decode step's lengths (the spliced
+    prompt plus 1 and plus NEW_TOKENS; the last timed), and at every cluster
+    size the wrapper picks, on lengths at the edges of the split."""
+    ph = cfg.phi3
+    dec_cases = [decode_case("serving", ph.num_layers, SERVE_SLOTS, SERVE_MAX_LEN, ph.num_heads,
+                             ph.num_kv_heads, ph.head_dim, SERVE_RAGGED,
+                             (0, ph.num_layers - 1), gen,
+                             timed={"full": [SERVE_MAX_LEN] * SERVE_SLOTS,
+                                    "ragged": SERVE_RAGGED})]
+    free_cuda()
+    dec_cases.append(decode_case("serving_live_width", ph.num_layers, SERVE_SLOTS,
+                                 SERVE_MAX_LEN, ph.num_heads, ph.num_kv_heads, ph.head_dim,
+                                 SERVE_RAGGED, (ph.num_layers - 1,), gen,
+                                 live_width=SERVE_SLOTS // 2))
+    free_cuda()
+    dec_cases.append(decode_case("gqa_h32_hkv8", 2, 4, 300, 32, 8, ph.head_dim,
+                                 [1, 100, 300, 0], (0, 1), gen))
+    free_cuda()
+    for r in prompts:
+        for n in (r["t_full"] + 1, r["t_full"] + NEW_TOKENS):
+            last = n > r["t_full"] + 1
+            dec_cases.append(decode_case(
+                f"generate_{r['name']}_len{n}", ph.num_layers, 1, r["max_len"], ph.num_heads,
+                ph.num_kv_heads, ph.head_dim, [n], (0, ph.num_layers - 1), gen,
+                timed={"at_length": [n]} if last else None))
+            free_cuda()
+    dec_cases += decode_cluster_edges(ph, gen)
+    picked = sorted({c["cluster"] for c in dec_cases})
+    log(f"decode cluster sizes picked: {picked}")
+    if picked != list(CLUSTER_SIZES_WANT):
+        raise SystemExit(f"chip_smoke: the decode cases ran clusters {picked}, not "
+                         f"{CLUSTER_SIZES_WANT}")
+    return dec_cases
+
+
+def decode_cluster_edges(ph, gen) -> list[dict]:
+    """Phase 10's split edges: for each cluster size C the wrapper can pick,
+    the fewest rows of the serving cache's width that make it pick C, with
+    lengths 0, 1, C - 1, C + 1, 64 C + 1 (one key past a 64-key tile in
+    each block's share), S - 1 and S spread over those rows, at the first
+    and the last layer."""
+    from aki_torch.ops import decode_attention as da
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    h, hkv, d, s_len = ph.num_heads, ph.num_kv_heads, ph.head_dim, SERVE_MAX_LEN
+    cases = []
+    for c in da.CLUSTER_SIZES:
+        b = next(b for b in range(1, 65) if da.cluster_size(b * h, sms, s_len, d) == c)
+        lens = [0, 1, c - 1, c + 1, 64 * c + 1, s_len - 1, s_len]
+        for i in range(0, len(lens), b):
+            part = [lens[(i + j) % len(lens)] for j in range(b)]
+            cases.append(decode_case(f"cluster{c}_rows{b}_{i // b}", ph.num_layers, b, s_len,
+                                     h, hkv, d, part, (0, ph.num_layers - 1), gen))
+            free_cuda()
+    return cases
+
+
+def decode_timing_cases(gen, one_row_lengths) -> list[dict]:
+    """The inputs of decode_ab.py's cases, at phase 10's timed shapes: the
+    serving cache with every row full and with ragged lengths (one cache),
+    and one row of each one-request cache ((max_len, length) pairs) at its
+    last decode length; each with the plain and f32 outputs at layer 1 and
+    the bound."""
+    from aki_torch.models.configs import aki_4b
+    from aki_torch.ops.decode_attention import decode_attention_flat_reference
+
+    ph = aki_4b().phi3
+    serving = decode_inputs(ph.num_layers, SERVE_SLOTS, SERVE_MAX_LEN, ph.num_heads,
+                            ph.num_kv_heads, ph.head_dim, gen)
+    specs = [("full", serving, [SERVE_MAX_LEN] * SERVE_SLOTS),
+             ("ragged", serving, SERVE_RAGGED)]
+    for s_len, n in one_row_lengths:
+        specs.append((f"one_row_{s_len}_len{n}",
+                      decode_inputs(ph.num_layers, 1, s_len, ph.num_heads, ph.num_kv_heads,
+                                    ph.head_dim, gen), [n]))
+    cases = []
+    for name, (q, k, ks, v, vs), lens_l in specs:
+        lens = torch.tensor(lens_l, device="cuda", dtype=torch.int32)
+        b, s_len = k.shape[1], k.shape[2]
+        w = decode_work(lens_l, b, b, s_len, ph.num_heads, ph.num_kv_heads, ph.head_dim)
+        cases.append(dict(name=name, tensors=(q, k, ks, v, vs, lens), layer=1,
+                          plain=decode_attention_flat_reference(q, k, ks, v, vs, lens, 1),
+                          f32=decode_f32(q, k, ks, v, vs, lens, 1),
+                          bound=dict(ms=max(w[0] / PEAK_BF16_FLOPS, w[1] / PEAK_HBM_BYTES) * 1e3,
+                                     flops=w[0], bytes=w[1])))
+    return cases
 
 
 def logit_drift(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -1495,10 +1762,11 @@ def serve_drain(cfg, model) -> dict:
         peak = torch.cuda.max_memory_allocated()
         results = [r.result(timeout=60) for r in reqs]
         t_parse = time.perf_counter()
-        busy = {}
+        busy, seen = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
                 busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                seen[e.name] = seen.get(e.name, 0) + 1
         busy_ms = sum(busy.values())
         parse_s = time.perf_counter() - t_parse
         n_prefill = sum(1 for kind, _, _ in eng.dispatch_log if kind == "prefill")
@@ -1509,13 +1777,23 @@ def serve_drain(cfg, model) -> dict:
                 "flash_fwd": 0}
         n_tokens = sum(m for _, _, m in traffic)
         share = lambda name: sum(v_ for k_, v_ in busy.items() if name in k_)  # noqa: E731
+        n_seen = lambda name: sum(v_ for k_, v_ in seen.items() if name in k_)  # noqa: E731
+        # K4's and K5's launches the profiler saw of those issued, and their
+        # device ms per drain as the mean of a seen launch times the issued
+        port = {}
+        for kname, issued in (("decode_attention_kernel", counts["decode"]),
+                              ("fused_quant_kernel", sum(counts[op] for op in
+                                                         FUSED_QUANT_REPLACES))):
+            got = n_seen(kname)
+            port[kname] = dict(seen=got, issued=issued, seen_ms=share(kname),
+                               ms_per_drain=share(kname) / got * issued if got else None)
         rec = dict(requests=SERVE_REQUESTS, warmup_s=warm_s, drain_s=drain_s,
                    requests_per_s=SERVE_REQUESTS / drain_s, tokens=n_tokens,
                    tokens_per_s=n_tokens / drain_s, device_busy_ms=busy_ms,
                    idle_share=1 - busy_ms / (drain_s * 1e3), peak_bytes=peak,
                    prefill_dispatches=n_prefill, decode_dispatches=eng.decode_dispatches,
                    launches=counts, decode_kernel_ms=share("decode_attention_kernel"),
-                   fused_quant_kernel_ms=share("fused_quant_kernel"),
+                   fused_quant_kernel_ms=share("fused_quant_kernel"), port_kernels=port,
                    profile_parse_s=parse_s,
                    top=sorted(((k_[:60], v_) for k_, v_ in busy.items()),
                               key=lambda kv: -kv[1])[:6])
@@ -1969,19 +2247,10 @@ def main() -> int:
     build_s = cuda_build.build_all(KERNEL_SOURCES)
     log(f"build seconds={time.perf_counter() - t0:.1f} nvcc_seconds={build_s}")
     for name in KERNEL_SOURCES:
-        for line in (cuda_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry",
-                                       "Performance Loss")):
-                log(f"  ptxas {name}:", line.strip())
+        print_ptxas(name, (cuda_build.BUILD_DIR / f"{name}.log").read_text())
 
     cfg = aki_4b()
-    n_vis = cfg.perceiver.num_latents
-    host_gen = torch.Generator().manual_seed(0)
-    requests = [dict(name="a", n_txt=60, max_len=1024),
-                dict(name="b", n_txt=900, max_len=1280)]
-    for r in requests:
-        r["ids"] = prompt_ids(cfg, r["n_txt"], host_gen)
-        r["t_full"], r["rect"] = request_spec(cfg, r["ids"], n_vis)
+    requests = request_prompts(cfg)
 
     # 3. kernel against plain version, at the main path's shapes
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -2170,47 +2439,10 @@ def main() -> int:
     train = train_full_width(cfg, batches, t_full)
     free_cuda()
 
-    # 9. the fused quantize kernels at the W8A8 serving prefill's shapes, at
-    # the one-request prefills of phase 11 (the spliced lengths of requests a
-    # and b through the decoder, one image through the tower), and on fewer
-    # rows than the a8 gate (64) lets through, all with edge rows
+    # 9. the fused quantize kernels; 10. the int8-KV decode kernel
     gen = torch.Generator(device="cuda").manual_seed(7)
-    rows_dec = SERVE_SLOTS * (SERVE_BUCKET + n_vis - 1)
-    rows_tower = SERVE_SLOTS * sg.num_patches
-    one_dec = [r["t_full"] for r in int8_prompts]
-    fq_cases = {}
-    for op, rows, d, path_rows in (
-            ("rms", rows_dec, ph.hidden_size, one_dec),
-            ("silu", rows_dec, ph.intermediate_size, one_dec),
-            ("ln", rows_tower, sg.hidden_size, [sg.num_patches]),
-            ("gelu", rows_tower, (sg.intermediate_size + 127) // 128 * 128, [sg.num_patches])):
-        fq_cases[op] = [fused_quant_case(op, rows, d, gen, edge=True, timed=True),
-                        *(fused_quant_case(op, n, d, gen, edge=True) for n in path_rows),
-                        fused_quant_case(op, 5, d, gen, edge=True)]
-        free_cuda()
-
-    # 10. the int8-KV decode kernel at the serving cache
-    ragged = [1, 63, 64, 65, 255, 511, 655, 704] * (SERVE_SLOTS // 8)
-    dec_cases = [decode_case("serving", ph.num_layers, SERVE_SLOTS, SERVE_MAX_LEN, ph.num_heads,
-                             ph.num_kv_heads, ph.head_dim, ragged, (0, ph.num_layers - 1), gen,
-                             timed=True)]
-    free_cuda()
-    dec_cases.append(decode_case("serving_live_width", ph.num_layers, SERVE_SLOTS,
-                                 SERVE_MAX_LEN, ph.num_heads, ph.num_kv_heads, ph.head_dim,
-                                 ragged, (ph.num_layers - 1,), gen, live_width=SERVE_SLOTS // 2))
-    free_cuda()
-    dec_cases.append(decode_case("gqa_h32_hkv8", 2, 4, 300, 32, 8, ph.head_dim,
-                                 [1, 100, 300, 0], (0, 1), gen))
-    free_cuda()
-    # and at phase 11's one-request caches, at the first and the last decode
-    # step's lengths (the spliced prompt plus 1 and plus NEW_TOKENS)
-    for r in int8_prompts:
-        for n in (r["t_full"] + 1, r["t_full"] + NEW_TOKENS):
-            dec_cases.append(decode_case(
-                f"generate_{r['name']}_len{n}", ph.num_layers, 1, r["max_len"], ph.num_heads,
-                ph.num_kv_heads, ph.head_dim, [n], (0, ph.num_layers - 1), gen,
-                timed=r is int8_prompts[-1] and n > r["t_full"] + 1))
-            free_cuda()
+    fq_cases = fused_quant_phase(cfg, gen)
+    dec_cases = decode_phase(cfg, int8_prompts, gen)
 
     # 11. int8 generation at full width and depth; 12. the serving engine
     model_q, int8_gen = int8_generation(cfg, int8_prompts)
@@ -2286,7 +2518,8 @@ def main() -> int:
         "train": {k: train[k] for k in ("steps", "peak_bytes", "tokens_per_step")}}
     int8_runs = [r["launches"] for r in int8_gen["requests"]] + [serve["launches"]]
     k4 = dec_cases[0]
-    k4_one = next(c for c in dec_cases[1:] if "ragged" in c)
+    timing_keys = ("ms", "device_ms", "cold_device_ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")
     record["kernels"] += [{
         "name": "decode_attention", "route": "cuda",
         "source": "aki_torch/csrc/decode_attention.cu", "replaces": K4_REPLACES,
@@ -2295,11 +2528,16 @@ def main() -> int:
                                                   for r in int8_gen["requests"]),
                              "serve": serve["launches"]["decode"]},
         "max_abs_err": max(c["max_abs_err"] for c in dec_cases),
-        **{k: k4["full"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "shape": "serving cache 32x48x704x3072, all rows at 704 keys", "ragged": k4["ragged"],
-        "one_row": {"name": k4_one["name"], "cache": k4_one["cache"],
-                    "lengths": k4_one["lengths"], "at_length": k4_one["ragged"],
-                    "all_slots": k4_one["full"]},
+        **{k: k4["full"][k] for k in timing_keys},
+        "shape": "serving cache 32x48x704x3072, all rows at 704 keys", "full": k4["full"],
+        "ragged": k4["ragged"],
+        "one_row": [{k: c[k] for k in ("name", "cache", "lengths", "cluster", "at_length")}
+                    for c in dec_cases if "at_length" in c],
+        "timing_note": "ms, layers_ms: CUDA events around one call, median of 20 (layers: "
+                       "each call the next layer); device_ms (the layers in turn), "
+                       "warm_device_ms (layer 1 again and again) and cold_device_ms (a "
+                       "64 MB write before each call): the kernel's device time per call, "
+                       "torch.profiler over 10 calls",
         "library_note": "no single PyTorch call attends over an int8 cache with "
                         "per-(token, head) scales",
         "cases": dec_cases,
@@ -2311,9 +2549,10 @@ def main() -> int:
                                                   for r in int8_gen["requests"]),
                              "serve": serve["launches"][op]},
         "max_abs_err": max(c["max_abs_err"] for c in fq_cases[op]),
-        **{k: fq_cases[op][0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms")},
+        **{k: fq_cases[op][0][k] for k in timing_keys},
         "shape": f"{fq_cases[op][0]['rows']}x{fq_cases[op][0]['d']}",
+        "one_request": [{k: c[k] for k in ("rows", "d", *timing_keys)}
+                        for c in fq_cases[op][1:] if "device_ms" in c],
         "library_note": "no single PyTorch call computes the op and the per-row int8 quantize",
         "cases": fq_cases[op],
     } for op in FUSED_QUANT_REPLACES]

@@ -42,3 +42,18 @@ def test_real_sources_share_the_hopper_header():
     for name in ("flash_mma_fwd", "flash_mma_bwd"):
         assert '#include "hopper.cuh"' in (cuda_build.CSRC / f"{name}.cu").read_text()
     assert (cuda_build.CSRC / "hopper.cuh").exists()
+
+
+def test_every_included_header_is_hashed():
+    """Each header a real source includes from the source directory (the
+    flash kernels' hopper.cuh, the int8 serving kernels' cp_async.cuh) is
+    one of the shared headers that library_path hashes."""
+    import re
+
+    hashed = {p.name for p in cuda_build.CSRC.glob("*.cuh")}
+    included = {}
+    for src in cuda_build.CSRC.glob("*.cu"):
+        for name in re.findall(r'#include "([^"]+)"', src.read_text()):
+            included.setdefault(name, []).append(src.stem)
+    assert set(included) <= hashed
+    assert sorted(included["cp_async.cuh"]) == ["decode_attention", "fused_quant"]

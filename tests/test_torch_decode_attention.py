@@ -124,3 +124,61 @@ def test_encoder_attention_bf16p_matches_jax():
     want = jax.jit(jax_attention.encoder_attention_xla)(*(jnp.asarray(x) for x in (q, k, v)))
     got = attention.encoder_attention_bf16p(*(torch.from_numpy(x) for x in (q, k, v)))
     _close(got.numpy(), want)
+
+
+# The kernel's split over a cluster of blocks (decode_attention.cu): the
+# plan functions, and the same function summed in the kernel's order.
+
+@pytest.mark.parametrize("c", da.CLUSTER_SIZES)
+def test_key_range_covers_every_live_key_once(c):
+    s = 704
+    for n in sorted({0, 1, max(c - 1, 0), c + 1, 64 * c + 1, 65 * c - 1, s - 1, s}):
+        spans = [da.key_range(n, c, r) for r in range(c)]
+        keys = [j for j0, j1 in spans for j in range(j0, j1)]
+        assert keys == list(range(n)), (n, spans)
+        assert all(j0 <= j1 for j0, j1 in spans)
+        assert max(j1 - j0 for j0, j1 in spans) == -(-n // c)   # a share is ceil(n / C)
+
+
+def test_cluster_size_gives_two_waves_within_shared_memory():
+    sms, d = 132, 96
+    assert [da.cluster_size(b * 32, sms, 704, d) for b in (1, 2, 3, 5, 8, 9, 48)] == \
+        [8, 8, 4, 2, 2, 1, 1]
+    for pairs in (1, 32, 100, 264, 1536):
+        c = da.cluster_size(pairs, sms, 704, d)
+        assert pairs * c >= 2 * sms or c == da.CLUSTER_SIZES[-1]
+        assert c == da.CLUSTER_SIZES[0] or pairs * (c // 2) < 2 * sms
+    # a row too long for one block's shared memory splits further
+    s_long = 30000
+    assert da.smem_bytes(s_long, 1, d) > da.SMEM_LIMIT
+    c = da.cluster_size(1536, sms, s_long, d)
+    assert c > 1 and da.smem_bytes(s_long, c, d) <= da.SMEM_LIMIT
+    with pytest.raises(ValueError, match="do not fit"):
+        da.cluster_size(1, sms, 10 ** 6, d)
+    # the ring of 4 tiles and two arrays of a tile-rounded share
+    assert da.smem_bytes(704, 1, 96) == 4 * 64 * 96 + 2 * 704 * 4
+    assert da.smem_bytes(1280, 8, 96) == 4 * 64 * 96 + 2 * 192 * 4
+    assert da.smem_bytes(40, 2, 80) == 4 * 128 * 80 + 2 * 128 * 4
+
+
+@pytest.mark.parametrize("c", da.CLUSTER_SIZES)
+@pytest.mark.parametrize("h,hkv,live_width", [(4, 4, None), (4, 2, 4)])
+def test_split_order_mirror_matches_jax_xla(c, h, hkv, live_width):
+    rng = np.random.RandomState(10 + c + h + hkv)
+    b, s, d, layer = 6, 70, 16, 1
+    k, ks, v, vs = _cache(rng, 2, b, s, hkv, d)
+    q = rng.randn(b, 1, h, d).astype(np.float32)
+    lengths = np.array([1, c + 1, 70, 0, 64 + 1, 33], np.int32)
+    want = np.asarray(jax.jit(jax_da.decode_attention_flat_xla, static_argnames="live_width")(
+        jnp.asarray(q), *(jnp.asarray(a) for a in (k, ks, v, vs)), jnp.asarray(lengths),
+        layer, live_width=live_width))
+    args = (torch.from_numpy(q), *(torch.from_numpy(a) for a in (k, ks, v, vs)),
+            torch.from_numpy(lengths), layer)
+    got = da.decode_attention_flat_split_reference(*args, live_width=live_width, cluster=c)
+    plain = da.decode_attention_flat_reference(*args, live_width=live_width)
+    assert got.shape == (b, 1, h, d) and got.dtype == torch.float32
+    rows = b if live_width is None else live_width
+    live = [i for i in range(rows) if lengths[i] > 0]     # JAX averages an empty row
+    _close(got.numpy()[live], want[live])
+    _close(got.numpy(), plain.numpy())
+    assert not got[3].any() and not got[rows:].any()

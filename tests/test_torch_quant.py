@@ -256,3 +256,31 @@ def test_int8_generate_tokens_identical_to_jax(int8_models, monkeypatch):
     n_tower, n_dec = INT8_TINY.siglip.num_layers, INT8_TINY.phi3.num_layers
     assert calls == {"layernorm_quant": 2 * n_tower, "gelu_quant": n_tower,
                      "rmsnorm_quant": 2 * n_dec, "silu_mul_quant": n_dec}
+
+
+@pytest.mark.parametrize("d", [128, 1152, 3072, 4352, 8192])
+def test_fused_quant_row_plan_covers_every_row_once(d):
+    sms = 132
+    for op in fq.LANE_VALUES:
+        for rows in (1, 7, 203, 264, 265, 729, 1043, 1101, 31440, 34992):
+            for per_sm in (1, 3, 8):
+                team, tpb, blocks = fq.row_plan(op, rows, d, sms, per_sm)
+                assert team in (1, 4, 8) and tpb * team == max(team, 4)
+                assert d // 4 >= 32 * team                    # a chunk for every lane
+                assert d // (32 * team) <= fq.LANE_VALUES[op] or team == 8
+                assert 1 <= blocks <= sms * per_sm and (blocks - 1) * tpb < rows
+                teams = blocks * tpb
+                seen = np.zeros(rows, np.int64)
+                for t in range(teams):            # team t takes rows t, t + teams, ...
+                    seen[t::teams] += 1
+                assert (seen == 1).all()
+    # the serving shapes: a warp a row where its registers allow, a team of
+    # four at gelu's and silu*mul's widths, eight for one request's rows
+    assert fq.row_plan("rms", 31440, 3072, sms, 4)[:2] == (1, 4)
+    assert fq.row_plan("ln", 34992, 1152, sms, 4)[:2] == (1, 4)
+    assert fq.row_plan("silu", 31440, 8192, sms, 4)[:2] == (4, 1)
+    assert fq.row_plan("gelu", 34992, 4352, sms, 4)[:2] == (4, 1)
+    for op, rows, d in (("rms", 203, 3072), ("silu", 1043, 8192), ("ln", 729, 1152),
+                        ("gelu", 729, 4352)):
+        assert fq.row_plan(op, rows, d, sms, 4)[:2] == (8, 1)
+    assert fq.row_plan("rms", 7, 128, sms, 4)[:2] == (1, 4)     # one chunk a lane
