@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the flash attention kernels
-// (flash_mma_fwd.cu, flash_mma_bwd.cu): mbarriers, TMA loads from tensor
-// maps built on the host, 128-byte-swizzle wgmma descriptors, the wgmma
-// instructions the kernels issue, exp2 in one MUFU instruction, and the
-// constants both kernels and aki_torch/ops/flash_mma_args.py agree on.
+// (flash_mma_fwd.cu, flash_mma_bwd.cu, flash_mma_q8.cu): mbarriers, TMA
+// loads from tensor maps built on the host, 128-byte-swizzle wgmma
+// descriptors, the wgmma instructions the kernels issue (bf16, and s8 for
+// the int8 forward), exp2 in one MUFU instruction, and the constants the
+// kernels and aki_torch/ops/flash_mma_args.py agree on.
 // Everything sits in an anonymous namespace: each source that includes it
 // is its own shared library.
 
@@ -69,6 +70,23 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// One TMA box of a 3-d (bytes, rows, batch) map into shared memory; its
+// bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Orders this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy reads of it (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma matrix descriptor of a 128-byte-swizzled tile at shared address
 // `addr`: 8-row groups 1024 bytes apart (SBO); `lbo`, the leading byte
 // offset, is the distance between 64-lane chunks of an MN-major operand
@@ -96,6 +114,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // D (+)= A B^T, m64n64k16: A and B from shared memory, both K-major.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
@@ -112,6 +135,25 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (+)= A B^T in int32, m64n64k32 over int8: A and B from shared memory,
+// both K-major (the only layout 8-bit operands take); exact.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

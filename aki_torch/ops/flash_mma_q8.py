@@ -12,10 +12,16 @@ launches the CUDA C++ kernel of ``csrc/flash_mma_q8.cu`` (its header says
 what it computes, what bounds it and why it makes two passes over K),
 counted in ``flash_mma_attention_q8.launches``; on CPU tensors it runs the
 plain version, :func:`flash_mma_q8_plain`. Inference only, as in JAX.
+
+:func:`q8_plan` mirrors the kernel's launch plan (query rows per block,
+ring stages, shared bytes) and :func:`q8_blocks`
+the order of its blocks; :func:`count_q8_tiles` reads the tiles each of
+its two passes ran, by class, on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -23,11 +29,17 @@ import torch
 from . import cuda_build
 from .attention import attention_mask
 from .flash_mma import flash_mma_attention, flash_mma_attention_reference
-from .flash_mma_args import HEAD_DIMS, LOG2E, ONE_TILE, kernel_mask_args
+from .flash_mma_args import HEAD_DIMS, LOG2E, MAX_IMAGES, ONE_TILE, kernel_mask_args
 from .fused_quant import quantize_rows
 from .masks import MMASpec
 
 _lib = None
+
+# The kernel's launch constants (csrc/flash_mma_q8.cu, csrc/hopper.cuh)
+TILE_BYTES = 64 * 128        # one int8 tile of 64 rows x 128 bytes (kTileBytes)
+MAX_TILES = ONE_TILE // 64   # KV tiles of S <= 1024 (kMaxTiles)
+MAX_SMEM = 232448            # dynamic shared bytes a block may use (kMaxSmem)
+PASSES = 2                   # count_q8_tiles() rows: the max pass, the P.V pass
 
 
 def quantize_heads(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -91,17 +103,99 @@ def flash_mma_attention_q8_reference(q, k, v, spec=None, kv_valid=None, q_offset
                               causal, q.dtype)
 
 
+def smem_bytes(nc: int, n_tiles: int, stages: int) -> int:
+    """The kernel's dynamic shared bytes (``layout(...).total``): Q, the
+    resident K tiles, the V ring (int8 and bf16 tiles), the key scales and
+    validity bits, the mbarriers, the image coordinates, and 1024 bytes of
+    alignment."""
+    scales = (nc + n_tiles + 3 * stages) * TILE_BYTES
+    bars = scales + n_tiles * 64 * 4 * 2 + n_tiles * 8
+    return 1024 + bars + (1 + MAX_TILES + 3 * stages) * 8 + 3 * MAX_IMAGES * 4
+
+
+def q8_plan(b: int, t: int, s: int, h: int, sms: int) -> dict:
+    """The launch plan of the kernel (``csrc/flash_mma_q8.cu:plan``) for
+    ``b`` x ``t`` query rows, ``s`` keys and ``h`` heads on ``sms`` SMs:
+    ``rows`` per block (192, three consumer warpgroups, once
+    B*H*ceil(T/192) fills two waves; else 64), V ring ``stages`` (3 where
+    they fit beside the resident K, else 2), ``smem`` bytes."""
+    nc = 3 if b * h * -(-t // 192) >= 2 * sms else 1
+    n_tiles = -(-s // 64)
+    stages = 3 if smem_bytes(nc, n_tiles, 3) <= MAX_SMEM else 2
+    return {"rows": 64 * nc, "stages": stages, "smem": smem_bytes(nc, n_tiles, stages)}
+
+
+def q8_blocks(plan: dict, b: int, t: int, h: int, causal: bool) -> list[tuple[int, int, int]]:
+    """The kernel's blocks in launch order (blockIdx x fastest, then y, z):
+    (first query row, head, batch row). The query tiles of one (head, batch
+    row) are neighbours; causal puts the last (longest KV walk) first."""
+    rows = plan["rows"]
+    nq = -(-t // rows)
+    return [((nq - 1 - x if causal else x) * rows, y, z)
+            for z in range(b) for y in range(h) for x in range(nq)]
+
+
+def row_stride(h: int, d: int) -> int:
+    """Bytes between tokens in the int8 operands the kernel reads: H*D, or
+    H*D padded to a multiple of 16 and at least 128 (TMA's stride and box)."""
+    return max(128, -(-h * d // 16) * 16)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = cuda_build.load("flash_mma_q8")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_mma_q8.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.flash_mma_q8.argtypes = [p] * 12 + [i] * 8 + [p]
         lib.flash_mma_q8.restype = i
         lib.flash_mma_q8_error_string.argtypes = [i]
         lib.flash_mma_q8_error_string.restype = ctypes.c_char_p
+        lib.flash_mma_q8_plan.argtypes = [i] * 4 + [p]
+        lib.flash_mma_q8_plan.restype = i
+        lib.flash_mma_q8_count_tiles.argtypes = [p]
+        lib.flash_mma_q8_count_tiles.restype = None
         _lib = lib
     return _lib
+
+
+def kernel_plan(b: int, t: int, s: int, h: int) -> dict:
+    """The plan the kernel takes on the current CUDA device (C entry
+    ``flash_mma_q8_plan``), in :func:`q8_plan`'s keys."""
+    out = (ctypes.c_int * 3)()
+    lib = _kernel_lib()
+    rc = lib.flash_mma_q8_plan(b, t, s, h, out)
+    if rc != 0:
+        raise RuntimeError("flash_mma_q8_plan failed: "
+                           + lib.flash_mma_q8_error_string(rc).decode())
+    return {"rows": out[0], "stages": out[1], "smem": out[2]}
+
+
+@contextlib.contextmanager
+def count_q8_tiles(device="cuda"):
+    """For checks: while open, every launch of the kernel adds the tiles
+    its consumer warpgroups ran in each pass, by class, to the int32 (2, 3)
+    tensor yielded (rows: the max pass, the P.V pass; columns ``[skip,
+    full, partial]``, in the units of ``flash_mma_args.tile_classes``, 64
+    query rows x 64 keys, summed over heads, batch rows and query tiles).
+    One atomic per tile; read the tensor after the launches."""
+    counts = torch.zeros(PASSES, 3, dtype=torch.int32, device=device)
+    lib = _kernel_lib()
+    lib.flash_mma_q8_count_tiles(counts.data_ptr())
+    try:
+        yield counts
+    finally:
+        lib.flash_mma_q8_count_tiles(None)
+
+
+def _padded_rows(x: torch.Tensor, ld: int) -> torch.Tensor:
+    """(B, L, H, D) int8 as (B, L, ld) rows, zero past H*D (a view when
+    ld == H*D, else a copy)."""
+    b, n, h, d = x.shape
+    if ld == h * d:
+        return x.view(b, n, ld)
+    out = x.new_zeros(b, n, ld)
+    out[..., :h * d] = x.reshape(b, n, h * d)
+    return out
 
 
 def flash_mma_q8_forward(q8, sq, k8, sk, v8, sv, spec=None, kv_valid=None, q_offset=0,
@@ -118,6 +212,8 @@ def flash_mma_q8_forward(q8, sq, k8, sk, v8, sv, spec=None, kv_valid=None, q_off
         raise ValueError(f"flash_mma_q8: k8/v8 {tuple(k8.shape)} do not fit q8 {tuple(q8.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_mma_q8: the kernel takes head dims {HEAD_DIMS}, got {d}")
+    if s_len > ONE_TILE:
+        raise ValueError(f"flash_mma_q8: the kernel keeps at most {ONE_TILE} keys, got {s_len}")
     if q8.device.type != "cuda":
         raise ValueError(f"flash_mma_q8: no kernel for device {q8.device}")
     for name, x, dt, shape in (("q8", q8, torch.int8, None), ("k8", k8, torch.int8, None),
@@ -135,13 +231,15 @@ def flash_mma_q8_forward(q8, sq, k8, sk, v8, sv, spec=None, kv_valid=None, q_off
             raise ValueError(f"flash_mma_q8: {name} must be contiguous and 16-byte aligned")
     valid, offset, coords, n_img = kernel_mask_args(spec, kv_valid, q_offset, b, s_len,
                                                     q8.device)
+    ld = row_stride(h, d)
+    q8, k8, v8 = (_padded_rows(x, ld) for x in (q8, k8, v8))
     out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q8.device)
     lib = _kernel_lib()
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(q8.device):
         rc = lib.flash_mma_q8(
             ptr(q8), ptr(k8), ptr(v8), ptr(sq), ptr(sk), ptr(sv), ptr(out), ptr(valid),
-            ptr(offset), *(ptr(c) for c in coords), n_img, b, t, s_len, h, d, int(causal),
+            ptr(offset), *(ptr(c) for c in coords), n_img, b, t, s_len, h, d, ld, int(causal),
             torch.cuda.current_stream(q8.device).cuda_stream,
         )
     if rc != 0:

@@ -86,8 +86,15 @@ Phases, each fatal on failure:
      to its plain version and, on its real lanes, to the standard forward
      on the unpadded tensors; the int8-operand forward (K7) at the same two
      shapes, at request (a) and on edge cases, held to its plain version and
-     to f32 attention, with its routes to the bf16 forward (GQA, 1043
-     tokens) counted; times beside the bound, K1 and the bf16-P attention;
+     to f32 attention, with its routes to the bf16 forward (GQA, 1043 and
+     1025 tokens) counted, and on edge cases of its tile classes at widths
+     80 and 96 (16 images on and off tile edges, q_offset with holes, three
+     heads at D = 72, T = 37, dead rows, 192-row blocks, T = S = 1024), the
+     tiles each of its two passes ran held to the mirror (every class at
+     both widths) and its launch plan to flash_mma_q8.q8_plan; its device
+     time alone (warm over SPREAD_ROUNDS rounds beside K1 on the same
+     tensors, and cold), its call's and the wrapper's by CUDA events,
+     beside the bound and the bf16-P attention;
      K1 itself at the two 48-row shapes against its plain version, timed
      beside SDPA on the same unpadded tensors (device times over
      SPREAD_ROUNDS rounds, each with the SM clock); K6's edge cases; the gate
@@ -2028,27 +2035,102 @@ def q8_work(b, t, s, h, d, allowed, has_valid):
     return 2 * d * h * pairs, 2 * d * h * pairs, nbytes
 
 
+def q8_gates(label, got, q, k, v, kw, plain=None) -> dict:
+    """Hold K7's bf16 output ``got`` to its plain version on the same
+    quantized operands (``plain``, computed when not given) and both to f32
+    attention on the unquantized inputs (Q8_REL, Q8_F32_RATIO, Q8_JAX_GATE);
+    fails the script on a miss; returns the errors."""
+    from aki_torch.ops.flash_mma import flash_mma_attention_reference
+    from aki_torch.ops.flash_mma_q8 import flash_mma_attention_q8_reference
+
+    if plain is None:
+        plain = flash_mma_attention_q8_reference(q, k, v, **kw).float()
+    exact = flash_mma_attention_reference(q.float(), k.float(), v.float(), **kw)
+    diff = (got.float() - plain).abs()
+    ref_max = exact.abs().max().item()
+    err_k = (got.float() - exact).abs().max().item()
+    err_p = (plain - exact).abs().max().item()
+    rec = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+               max_abs_vs_f32=err_k, plain_max_abs_vs_f32=err_p, f32_max=ref_max)
+    ok = (bool(torch.isfinite(got).all())
+          and rec["max_abs_err"] <= Q8_REL * plain.abs().max().item()
+          and err_k <= Q8_F32_RATIO * err_p + 1e-6
+          and max(err_k, err_p) <= Q8_JAX_GATE * ref_max)
+    log(f"{label}: q={tuple(q.shape)} k={tuple(k.shape)} causal={kw['causal']} "
+        f"max|kernel - plain|={rec['max_abs_err']:.6g} (<= {Q8_REL:.6g} * max|plain|) "
+        f"mean={rec['mean_abs_err']:.4g}; max error vs f32 attention on the unquantized "
+        f"inputs: kernel {err_k:.6g} plain {err_p:.6g} (kernel <= {Q8_F32_RATIO}x plain; both "
+        f"<= {Q8_JAX_GATE} * {ref_max:.4g}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {label} disagrees with its plain version")
+    return rec
+
+
+def q8_timings(q, k, v, kw, rounds: int) -> dict:
+    """K7 at one shape: the kernel's device time alone (device_ms of
+    flash_mma_q8_kernel over 20 calls of flash_mma_q8_forward on fixed
+    operands) alternated over ``rounds`` rounds with K1's (flash_mma_fwd_kernel,
+    flash_mma_forward on the same bf16 tensors), medians and each round;
+    K7's device time with a 64 MB write before each call (cold_split_ms);
+    the kernel's call and the whole wrapper's (quantize included) by CUDA
+    events; the plain version's; the bound from q8_work."""
+    from aki_torch.ops.flash_mma import flash_mma_forward
+    from aki_torch.ops.flash_mma_q8 import (flash_mma_attention_q8, flash_mma_q8_forward,
+                                            flash_mma_q8_plain, quantize_operands)
+
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    ops = quantize_operands(q, k, v, d ** -0.5)
+    k7 = lambda: flash_mma_q8_forward(*ops, **kw)  # noqa: E731
+    k1 = lambda: flash_mma_forward(q, k, v, kw["spec"], kw["kv_valid"],  # noqa: E731
+                                   kw.get("q_offset", 0), kw["causal"])
+    dev, k1_dev, seen = [], [], []
+    for _ in range(rounds):
+        dev.append(device_ms(k7, "flash_mma_q8_kernel"))
+        seen.append(profiler_shortfall("flash_mma_q8_kernel"))
+        k1_dev.append(device_ms(k1, "flash_mma_fwd_kernel"))
+    cold = kernel_ms(cold_split_ms(k7), "flash_mma_q8_kernel")
+    allowed = case_allowed(b, t, s, kw["spec"], kw["kv_valid"], kw["causal"],
+                           kw.get("q_offset", 0))
+    int_ops, flops, nbytes = q8_work(b, t, s, h, d, allowed, kw["kv_valid"] is not None)
+    t_ops = (int_ops / PEAK_INT8_OPS + flops / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(
+        ms=median_of(dev), device_ms_rounds=dev, profiler_launches_seen_of=seen,
+        cold_ms=cold, call_ms=cuda_ms(k7),
+        wrapper_ms=cuda_ms(lambda: flash_mma_attention_q8(q, k, v, **kw)),
+        k1_device_ms=median_of(k1_dev), k1_device_ms_rounds=k1_dev,
+        plain_ms=cuda_ms(lambda: flash_mma_q8_plain(*ops, **kw)), library_ms=None,
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_int8_ops=int_ops, bound_bf16_flops=flops, bound_bytes=nbytes)
+
+
 def q8_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None, lens=None, timed=False,
-            zero_rows=None, zero_q_row=None, routed=False) -> dict:
+            zero_rows=None, zero_q_row=None, routed=False, kv_valid=None, q_offset=0,
+            rounds=SPREAD_ROUNDS) -> dict:
     """K7 through ``flash_mma_attention_q8`` against its plain version (the
     same routing and quantize), and both against f32 attention on the
-    unquantized inputs. ``routed`` cases must launch the bf16 forward once
-    and K7 never, and are held by forward_gates. Returns the record."""
+    unquantized inputs (q8_gates); the tiles each of its two passes ran, as
+    the kernel counted them (count_q8_tiles), held to the mirror's classes
+    (tile_gate), and its launch plan to the mirror q8_plan. ``routed`` cases
+    must launch the bf16 forward once and K7 never, and are held by
+    forward_gates. Key validity from ``lens`` (a prefix per row) or
+    ``kv_valid``. ``timed`` adds q8_timings and the bf16-P attention's call
+    time. Returns the record."""
     from aki_torch.ops.attention import decoder_attention_bf16p, encoder_attention_bf16p
-    from aki_torch.ops.flash_mma import (flash_mma_attention, flash_mma_attention_reference,
-                                         flash_mma_forward)
-    from aki_torch.ops.flash_mma_q8 import (flash_mma_attention_q8,
-                                            flash_mma_attention_q8_reference,
-                                            flash_mma_q8_forward, flash_mma_q8_plain,
-                                            quantize_operands)
+    from aki_torch.ops.flash_mma import flash_mma_attention
+    from aki_torch.ops.flash_mma_q8 import (count_q8_tiles, flash_mma_attention_q8,
+                                            kernel_plan, q8_plan)
 
     q, k, v, spec = case_inputs(b, t, s, h, hkv, d, gen, rects)
-    kv_valid = None if lens is None else prefix_valid(lens, s)
+    if lens is not None:
+        kv_valid = prefix_valid(lens, s)
     if zero_q_row is not None:
         q[zero_q_row] = 0
-    kw = dict(spec=spec, kv_valid=kv_valid, causal=causal)
+    kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
     n7, n1 = flash_mma_attention_q8.launches, flash_mma_attention.launches
-    got = flash_mma_attention_q8(q, k, v, **kw)
+    with count_q8_tiles() as counts:
+        got = flash_mma_attention_q8(q, k, v, **kw)
     launched = {"q8": flash_mma_attention_q8.launches - n7,
                 "flash_fwd": flash_mma_attention.launches - n1}
     torch.cuda.synchronize()
@@ -2057,52 +2139,54 @@ def q8_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None, lens=None, t
     if routed:
         rec.update(forward_gates(f"K7 {name} (routed to the bf16 forward)", got, q, k, v, kw,
                                  zero_rows=zero_rows))
-        ok = launched == want_launches
+        ok = launched == want_launches and counts.sum().item() == 0
     else:
-        plain = flash_mma_attention_q8_reference(q, k, v, **kw).float()
-        exact = flash_mma_attention_reference(q.float(), k.float(), v.float(), **kw)
-        diff = (got.float() - plain).abs()
-        ref_max = exact.abs().max().item()
-        err_k = (got.float() - exact).abs().max().item()
-        err_p = (plain - exact).abs().max().item()
-        rec.update(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
-                   max_abs_vs_f32=err_k, plain_max_abs_vs_f32=err_p, f32_max=ref_max)
-        ok = (launched == want_launches and bool(torch.isfinite(got).all())
-              and rec["max_abs_err"] <= Q8_REL * plain.abs().max().item()
-              and err_k <= Q8_F32_RATIO * err_p + 1e-6
-              and max(err_k, err_p) <= Q8_JAX_GATE * ref_max)
+        rec.update(q8_gates(f"K7 {name}", got, q, k, v, kw))
+        width = 80 if d <= 80 else 96
+        rec["tiles"] = [tile_gate(f"K7 {name} pass {p + 1}", counts[p], b, t, s, h, spec,
+                                  kv_valid, q_offset, causal, width) for p in range(2)]
+        plan = kernel_plan(b, t, s, h)
+        rec["plan"] = plan
+        mirror = q8_plan(b, t, s, h, torch.cuda.get_device_properties(0).multi_processor_count)
+        ok = launched == want_launches and plan == mirror
         if zero_rows is not None:
             ok = ok and bool((got[zero_rows[0], zero_rows[1]] == 0).all())
-        log(f"K7 {name}: q={tuple(q.shape)} k={tuple(k.shape)} causal={causal} "
-            f"launches={launched} max|kernel - plain|={rec['max_abs_err']:.6g} "
-            f"(<= {Q8_REL:.6g} * max|plain|) mean={rec['mean_abs_err']:.4g}; max error vs f32 "
-            f"attention on the unquantized inputs: kernel {err_k:.6g} plain {err_p:.6g} "
-            f"(kernel <= {Q8_F32_RATIO}x plain; both <= {Q8_JAX_GATE} * {ref_max:.4g}) "
-            f"{'ok' if ok else 'FAILED'}")
+        log(f"  K7 {name}: launches={launched} plan={plan} (mirror {mirror}) "
+            f"tiles per pass={rec['tiles']} {'ok' if ok else 'FAILED'}")
     if not ok:
         raise SystemExit(f"chip_smoke: K7 {name} failed (launches {launched}, "
                          f"want {want_launches})")
     if timed:
-        ops = quantize_operands(q, k, v, d ** -0.5)
-        allowed = case_allowed(b, t, s, spec, kv_valid, causal)
-        int_ops, flops, nbytes = q8_work(b, t, s, h, d, allowed, kv_valid is not None)
-        t_ops = (int_ops / PEAK_INT8_OPS + flops / PEAK_BF16_FLOPS) * 1e3
-        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
         bf16p = ((lambda: decoder_attention_bf16p(q, k, v, **{x: kw[x] for x in
                                                                ("spec", "kv_valid")}))
                  if causal else (lambda: encoder_attention_bf16p(q, k, v)))
-        rec.update(
-            ms=cuda_ms(lambda: flash_mma_q8_forward(*ops, **kw)),
-            plain_ms=cuda_ms(lambda: flash_mma_q8_plain(*ops, **kw)),
-            library_ms=None,
-            wrapper_ms=cuda_ms(lambda: flash_mma_attention_q8(q, k, v, **kw)),
-            k1_ms=cuda_ms(lambda: flash_mma_forward(q, k, v, spec, kv_valid, 0, causal)),
-            bf16p_ms=cuda_ms(bf16p),
-            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-            bound_int8_ops=int_ops, bound_bf16_flops=flops, bound_bytes=nbytes)
-        for key in ("ms", "plain_ms", "wrapper_ms", "k1_ms", "bf16p_ms", "bound_ms", "bound_by"):
+        rec.update(q8_timings(q, k, v, kw, rounds), bf16p_ms=cuda_ms(bf16p))
+        for key in ("ms", "device_ms_rounds", "cold_ms", "call_ms", "wrapper_ms",
+                    "k1_device_ms", "k1_device_ms_rounds", "plain_ms", "bf16p_ms", "bound_ms",
+                    "bound_by", "profiler_launches_seen_of"):
             log(f"  K7 {name} {key}={rec[key]}")
     return rec
+
+
+def q8_tile_coverage(records) -> dict:
+    """Which tile classes K7's cases ran in each pass, per padded width;
+    fails the script unless both passes ran skip, full and partial at
+    widths 80 and 96."""
+    from aki_torch.ops.flash_mma_args import TILE_CLASS_NAMES
+
+    cover: dict = {}
+    for r in records:
+        for p, tiles in enumerate(r.get("tiles", [])):
+            by = cover.setdefault(f"{tiles['width']} pass {p + 1}",
+                                  dict.fromkeys(TILE_CLASS_NAMES, 0))
+            for n in TILE_CLASS_NAMES:
+                by[n] += tiles[n]
+    want = {f"{w} pass {p}" for w in (80, 96) for p in (1, 2)}
+    ok = set(cover) == want and all(all(c.values()) for c in cover.values())
+    log(f"K7 tile classes run, per width and pass: {cover} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("chip_smoke: K7's cases miss a tile class at some width")
+    return cover
 
 
 def flat_and_q8(cfg, prompt_a, prompt_b) -> tuple[list, list, dict]:
@@ -2176,7 +2260,31 @@ def flat_and_q8(cfg, prompt_a, prompt_b) -> tuple[list, list, dict]:
                    rects=[rect_a], routed=True),
            q8_case(f"t_{t_b}", 1, t_b, t_b, *dec8, gen, rects=[rect_b], routed=True),
            q8_case("zero_q_row_dead_rows", 2, 100, 100, 4, 4, ph.head_dim, gen,
-                   lens=[100, 0], zero_rows=(1, slice(None)), zero_q_row=(0, 5, 1))]
+                   lens=[100, 0], zero_rows=(1, slice(None)), zero_q_row=(0, 5, 1)),
+           # edges of the tile classes at both widths: 16 images on and off
+           # 64-key boundaries, q_offset with T < S and holes; three heads
+           # at D = 72 (the operands padded to 16-byte rows, the last head's
+           # box past the row)
+           q8_case("images16_qoffset_hole_d72_h3", 2, 201, 389, 3, 3, 72, gen,
+                   rects=EDGE_RECTS_16, q_offset=torch.tensor([100, 188], device="cuda"),
+                   kv_valid=holed_valid([301, 389], 389, [[20], [70, 200]])),
+           q8_case("images16_edges_d96", 1, 389, 389, 4, 4, 96, gen, rects=EDGE_RECTS_16,
+                   lens=[389]),
+           q8_case("t_37_d80", 2, 37, 37, 2, 2, 80, gen, rects=[(2, 10, 30)]),
+           q8_case("dead_rows_d88", 2, 150, 150, 4, 4, 88, gen,
+                   kv_valid=holed_valid([150, 0], 150, [[70], []]), zero_rows=(1, slice(None))),
+           # 192-row blocks at both widths
+           q8_case("big_grid_edges_d96", 12, 300, 389, 32, 32, 96, gen, rects=EDGE_RECTS_2,
+                   q_offset=89, kv_valid=holed_valid([389] * 6 + [300] * 6, 389, [[64]] * 12)),
+           q8_case("big_grid_tower_hole_d72", 24, sg.num_patches, sg.num_patches, sg.num_heads,
+                   sg.num_heads, sg.head_dim, gen, causal=False,
+                   kv_valid=holed_valid([729] * 23 + [500], 729, [[]] * 23 + [[130]])),
+           # the longest single-tile sequence, and one past it (routed)
+           q8_case("t_s_1024", 1, 1024, 1024, *dec8, gen, rects=[(5, 149, 300)], lens=[1000]),
+           q8_case("t_s_1025", 1, 1025, 1025, *dec8, gen, rects=[(5, 149, 300)], routed=True)]
+    for c in k7:
+        if c["name"].startswith("big_grid") and c["plan"]["rows"] != 192:
+            raise SystemExit(f"chip_smoke: K7 case {c['name']} ran 64-row blocks")
     free_cuda()
     return k6, k7, k1_fold
 
@@ -2458,6 +2566,7 @@ def main() -> int:
     # forward's cases ran at each width
     k1_b48 = [c["k1"] for c in k6 if "k1" in c]
     coverage = tile_coverage(cases + k1_b48 + k6)
+    k7_coverage = q8_tile_coverage(k7)
 
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
@@ -2573,9 +2682,15 @@ def main() -> int:
         "name": "flash_mma_q8", "route": "cuda", "source": "aki_torch/csrc/flash_mma_q8.cu",
         "replaces": K7_REPLACES, "launches": n7, "launches_by_path": {"phase13": n7},
         "max_abs_err": max(c["max_abs_err"] for c in k7),
-        **{k: k7_head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: k7_head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "cold_ms", "call_ms", "wrapper_ms", "k1_device_ms")},
         "shape": "decoder_serving " + "x".join(map(str, k7_head["shape"])),
+        "timing_note": "ms: the kernel's device time per call, torch.profiler over 20 calls, "
+                       "median of the rounds; cold_ms the same after a 64 MB write before "
+                       "each call; call_ms (the kernel's entry) and wrapper_ms (quantize "
+                       "included): CUDA events; k1_device_ms: K1 on the same bf16 tensors",
         "library_note": "no PyTorch call attends over int8 operands with per-row scales",
+        "tile_coverage": k7_coverage,
         "cases": k7,
     }]
     record.update(int8_generate=int8_gen, prefill_attention=attn_times, serve=serve)

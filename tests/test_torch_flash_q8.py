@@ -11,7 +11,12 @@ plain version and the CPU wrapper) against the JAX wrapper with its kernel
   output by up to 2^-8 * p * |v| / l). Tolerance 1e-3 of max|out|
   (observed ~1.2e-7 absolute at max|out| ~1.9);
 - the routes JAX takes to ``flash_mma_attention`` (GQA, T or S past one
-  1024 tile) are the port's too.
+  1024 tile) are the port's too;
+- the kernel's launch plan mirror (``q8_plan``, ``q8_blocks``) covers
+  every (64-row query tile, head, batch row) exactly once at every shape
+  of ``chip_smoke.py`` phase 13, within the card's shared memory, and the
+  operands' row stride (``row_stride``, ``_padded_rows``) is one TMA can
+  take.
 """
 
 import jax.numpy as jnp
@@ -23,10 +28,11 @@ from aki_tpu.ops.flash_mma import _quantize_heads as jax_quantize_heads
 from aki_tpu.ops.flash_mma import flash_mma_attention_q8 as jax_q8
 from aki_tpu.ops.masks import MMASpec as JaxSpec
 from aki_torch.ops.flash_mma import flash_mma_attention
-from aki_torch.ops.flash_mma_q8 import (flash_mma_attention_q8,
+from aki_torch.ops.flash_mma_q8 import (MAX_SMEM, _padded_rows, flash_mma_attention_q8,
                                         flash_mma_attention_q8_reference,
-                                        flash_mma_q8_plain, quantize_heads, quantize_operands,
-                                        routes_to_flash)
+                                        flash_mma_q8_forward, flash_mma_q8_plain, q8_blocks,
+                                        q8_plan, quantize_heads, quantize_operands,
+                                        routes_to_flash, row_stride)
 from aki_torch.ops.masks import MMASpec
 
 
@@ -160,3 +166,66 @@ def test_q8_cpu_tensors_never_launch():
     with pytest.raises(ValueError, match="no kernel for device"):
         m = q.to("meta")
         flash_mma_attention_q8(m, m, m)
+
+
+H100_SMS = 132
+# chip_smoke.py phase 13's K7 shapes: (b, t, s, h, causal)
+PLAN_SHAPES = {
+    "decoder_serving": (48, 655, 655, 32, True),
+    "tower_serving": (48, 729, 729, 16, False),
+    "request_a": (1, 203, 203, 32, True),
+    "zero_q_row_dead_rows": (2, 100, 100, 4, True),
+    "images16_qoffset_hole_d72_h3": (2, 201, 389, 3, True),
+    "images16_edges_d96": (1, 389, 389, 4, True),
+    "t_37_d80": (2, 37, 37, 2, True),
+    "dead_rows_d88": (2, 150, 150, 4, True),
+    "big_grid_edges_d96": (12, 300, 389, 32, True),
+    "big_grid_tower_hole_d72": (24, 729, 729, 16, False),
+    "t_s_1024": (1, 1024, 1024, 32, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
+def test_q8_plan_covers_every_tile_once(name):
+    """Every (64-row query tile, head, batch row) is in exactly one block;
+    the blocks of one (head, batch row) are neighbours, longest KV walk
+    first when causal; the plan fits the card's shared memory."""
+    b, t, s, h, causal = PLAN_SHAPES[name]
+    plan = q8_plan(b, t, s, h, H100_SMS)
+    assert plan["smem"] <= MAX_SMEM and plan["stages"] in (2, 3)
+    assert plan["rows"] == (192 if name.startswith(("big_grid", "decoder", "tower")) else 64)
+    blocks = q8_blocks(plan, b, t, h, causal)
+    rows = plan["rows"]
+    assert all(first < t for first, _, _ in blocks)
+    tiles = [(first + 64 * w, hh, bb) for first, hh, bb in blocks for w in range(rows // 64)
+             if first + 64 * w < t]
+    want = [(r0, hh, bb) for bb in range(b) for hh in range(h) for r0 in range(0, t, 64)]
+    assert sorted(tiles) == sorted(want) and len(tiles) == len(set(tiles))
+    nq = -(-t // rows)
+    for i in range(0, len(blocks), nq):
+        group = blocks[i:i + nq]
+        assert len({(hh, bb) for _, hh, bb in group}) == 1
+        firsts = [first for first, _, _ in group]
+        assert firsts == sorted(firsts, reverse=causal)
+
+
+@pytest.mark.parametrize("h,d", [(32, 96), (16, 72), (3, 72), (1, 96), (4, 88), (2, 80)])
+def test_row_stride_is_a_tma_stride(h, d):
+    ld = row_stride(h, d)
+    assert ld % 16 == 0 and ld >= max(h * d, 128) and ld - max(h * d, 128) < 16
+    x = torch.arange(2 * 5 * h * d, dtype=torch.int64).remainder(255).sub(127).to(torch.int8)
+    x = x.view(2, 5, h, d)
+    rows = _padded_rows(x, ld)
+    assert rows.shape == (2, 5, ld)
+    assert torch.equal(rows[..., :h * d], x.reshape(2, 5, h * d))
+    assert not rows[..., h * d:].any()
+    if ld == h * d:
+        assert rows.data_ptr() == x.data_ptr()
+
+
+def test_q8_forward_refuses_past_one_tile():
+    q8 = torch.zeros(1, 8, 2, 96, dtype=torch.int8)
+    k8 = torch.zeros(1, 1025, 2, 96, dtype=torch.int8)
+    sq, sk = torch.ones(1, 8, 2), torch.ones(1, 1025, 2)
+    with pytest.raises(ValueError, match="at most 1024 keys"):
+        flash_mma_q8_forward(q8, sq, k8, sk, k8, sk)
