@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.configs import AKIConfig
+from ..models.configs import AKIConfig
 
 
 def _t(x) -> torch.Tensor:

@@ -189,6 +189,22 @@ def aki_4b() -> AKIConfig:
     ))
 
 
+def config_for_tokenizer(base: AKIConfig, info) -> AKIConfig:
+    """Rebind the token-id layout from a ``TokenizerInfo`` (single source of
+    truth — mismatched layouts silently break splice/routing)."""
+    vocab_rows = max(base.phi3.vocab_size, info.vocab_size)
+    return dataclasses.replace(
+        base,
+        phi3=dataclasses.replace(base.phi3, vocab_size=vocab_rows),
+        initial_tokenizer_len=info.initial_len,
+        num_extra_tokens=info.vocab_size - info.initial_len,
+        pad_token_id=info.pad_id,
+        media_token_id=info.media_id,
+        end_of_chunk_token_id=info.end_of_chunk_id,
+        assistant_token_id=info.assistant_id,
+    )
+
+
 def aki_tiny(vocab: int = 128) -> AKIConfig:
     """Tiny geometry for tests: same wiring, toy dims."""
     phi3 = Phi3Config(

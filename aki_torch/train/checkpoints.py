@@ -51,12 +51,20 @@ class CheckpointManager:
     def save(self, state: TrainState, epoch: int, step: int | None = None,
              include_frozen: bool = False) -> Path:
         step = state.step if step is None else step
-        target = self.path / f"checkpoint_{epoch}_{step}.pt"
         weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()
                    if include_frozen or not is_frozen_path(k)}
-        payload = {"model_state_dict": weights,
-                   "optimizer_state_dict": state.optimizer.state_dict(),
-                   "step": int(state.step), "epoch": int(epoch)}
+        return self._write(epoch, step, {"model_state_dict": weights,
+                                         "optimizer_state_dict": state.optimizer.state_dict(),
+                                         "step": int(state.step), "epoch": int(epoch)})
+
+    def save_weights(self, weights: dict[str, torch.Tensor], epoch: int, step: int) -> Path:
+        """A checkpoint of ``weights`` alone (an import): a restore keeps the
+        fresh optimizer state."""
+        return self._write(epoch, step, {"model_state_dict": weights, "step": int(step),
+                                         "epoch": int(epoch)})
+
+    def _write(self, epoch: int, step: int, payload: dict) -> Path:
+        target = self.path / f"checkpoint_{epoch}_{step}.pt"
         tmp = target.with_suffix(".tmp")
         torch.save(payload, tmp)
         tmp.replace(target)
@@ -77,14 +85,21 @@ class CheckpointManager:
         if path is None:
             return state, 0
         blob = torch.load(path, map_location="cpu", weights_only=False)
-        live = state.model.state_dict()
-        with torch.no_grad():
-            for k, v in blob["model_state_dict"].items():
-                if k in live and live[k].shape == v.shape:
-                    live[k].copy_(v)
+        load_weights(state.model, blob["model_state_dict"])
         try:
             state.optimizer.load_state_dict(blob["optimizer_state_dict"])
         except (KeyError, ValueError):
             pass   # the optimizer changed since the save: keep the fresh state
         state.step = int(blob["step"])
         return state, int(blob["epoch"])
+
+
+def load_weights(model: torch.nn.Module, weights: dict[str, torch.Tensor]) -> None:
+    """Copy ``weights`` into ``model``'s tensors in place (cast to their
+    dtype and device), leniently: a key the model lacks, or one whose shape
+    differs, is skipped and the live value kept."""
+    live = model.state_dict()
+    with torch.no_grad():
+        for k, v in weights.items():
+            if k in live and live[k].shape == v.shape:
+                live[k].copy_(v)

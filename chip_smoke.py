@@ -100,7 +100,20 @@ Phases, each fatal on failure:
      SPREAD_ROUNDS rounds, each with the SM clock); K6's edge cases; the gate
      that the forward's cases ran every tile class at each width (80, 96,
      128); and how far K6 and K1 sit from a plain version that folds the
-     scale into q in bf16, as the JAX wrappers do.
+     scale into q in bf16, as the JAX wrappers do;
+ 14. loading and the user-facing consumers at full aki_4b() width and depth
+     in bf16, with the hash tokenizer's token layout (config_for_tokenizer:
+     the same parameter shapes, output ids below 512): random weights from
+     a seed (AKI.from_pretrained) saved with the port's CheckpointManager,
+     tower included, under build/ and reloaded bitwise equal (bytes, save
+     and load seconds); AKI.generate on the reloaded model equal to the
+     engine on the model in memory, 59 forward launches; the CV-Bench eval
+     (8 samples in two buckets, batches of 4) equal to generate on its own
+     padded batches, 59 launches a batch, and scored; beam search with
+     K = 1 equal to greedy, and K = 4 (3-gram rule, 2 hypotheses returned)
+     whose scores equal a teacher-forced recomputation within one bf16 ulp
+     of the logits a step; AKI.answer on PNG bytes equal to generate's text;
+     the predict CLI answering 4 requests with 4 slots. Wall times of each.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -216,6 +229,18 @@ TRAIN_TEXT = 512          # text tokens per training row; one <image> -> 144
 # 50 MB; a train step's attention inputs, ~40 MB, arrive from HBM)
 BWD_CASE_SECONDS, BWD_TIMING_SECONDS = 120, 300
 FLUSH_BYTES = 64 << 20
+# Phase 14: the consumers' new tokens (generate, answer, beam), CV-Bench's
+# (8 samples in two buckets, batches of 4) and predict's (4 requests, 4
+# slots); the beam's width, ngram rule and returned hypotheses
+CONSUMER_NEW, EVAL_NEW, EVAL_BATCH, PREDICT_REQUESTS = 16, 8, 4, 4
+BEAM_K, BEAM_NGRAM, BEAM_RETURN, BEAM_PENALTY = 4, 3, 2, 1.0
+# Beam scores against a teacher-forced recomputation: the recomputation runs
+# the beam's own prefill and decode steps at its batch width, so each row
+# meets the same kernels at the same shapes and is expected to agree
+# exactly; the gate admits one bf16 ulp of every logit at every step (a
+# logit that moves by u moves a log-softmax by at most 2u), summed over
+# the hypothesis and scaled as its score is.
+BEAM_ULPS = 1
 
 
 def log(*args):
@@ -2325,6 +2350,267 @@ def tile_coverage(records) -> dict:
     return cover
 
 
+def png_bytes(seed: int, size=(640, 480)) -> bytes:
+    """A PNG of random pixels drawn from ``seed``."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    buf = io.BytesIO()
+    Image.fromarray(rng.randint(0, 256, (size[1], size[0], 3), dtype=np.uint8)).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def decoded_ids_ok(text: str, tok, vocab: int) -> bool:
+    """Whether ``text`` is a HashTokenizer decode of ids below ``vocab``."""
+    names = {tok.decode([i]) for i in range(vocab)}
+    return bool(text) and all(p in names for p in text.split(" "))
+
+
+def beam_teacher_scores(aki, ids, image, tokens, lens, max_len, penalty) -> tuple[list, list]:
+    """Each returned hypothesis's score recomputed by teacher forcing at the
+    beam's batch width: one prefill, the cache expanded to BEAM_K rows, then
+    decode steps fed the hypotheses' tokens (rows past the hypotheses repeat
+    the first). Returns (scores, the bf16 ulp of the largest |logit| each
+    hypothesis met)."""
+    from aki_torch.infer.beam import _expand_beams
+    from aki_torch.infer.engine import decode_step, prefill
+
+    dev = aki.model.device
+    r = tokens.shape[0]
+    rows = torch.cat([tokens, tokens[:1].expand(BEAM_K - r, -1)])
+    state = _expand_beams(prefill(aki.model, [ids], image[None], [[1] * len(ids)], max_len,
+                                  policy=aki.policy, device=dev), BEAM_K)
+    sums = torch.zeros(r, dtype=torch.float32, device=dev)
+    top = torch.zeros(r, dtype=torch.float32, device=dev)
+    for t in range(int(lens.max())):
+        live = t < lens
+        logp = torch.log_softmax(state.last_logits.float(), dim=-1)[:r]
+        step = logp.gather(1, rows[:r, t:t + 1])[:, 0]
+        sums += torch.where(live, step, 0.0)
+        top = torch.where(live, torch.maximum(top, state.last_logits[:r].float().abs().amax(1)),
+                          top)
+        state = decode_step(aki.model, state, rows[:, t], policy=aki.policy, device=dev)
+    scores = sums / lens.float() ** penalty
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return scores.tolist(), ulp.tolist()
+
+
+def loading_and_consumers() -> dict:
+    """Phase 14: the port's loading and its user-facing consumers at full
+    aki_4b() width and depth in bf16, with the hash tokenizer's token layout
+    (config_for_tokenizer: the same parameter shapes, output ids below 512):
+    save and reload through the port's checkpoint format, AKI.generate,
+    the CV-Bench eval, beam search, AKI.answer on PNG bytes and the predict
+    CLI. Each counted call runs with the launch counts zeroed just before it
+    and read just after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from aki_torch.data.images import decode_image, preprocess
+    from aki_torch.infer import eval_cv_bench, predict
+    from aki_torch.infer.beam import generate_beam
+    from aki_torch.infer.engine import generate, prefill
+    from aki_torch.models.modeling import AKI, chat_prompt
+    from aki_torch.ops.flash_mma import flash_mma_attention
+    from aki_torch.train.checkpoints import CheckpointManager
+    from aki_torch.train.optim import make_optimizer
+    from aki_torch.train.step import TrainState
+
+    def counted(fn):
+        flash_mma_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return result, flash_mma_attention.launches, ms
+
+    out = {"launches": 0}
+    per_call = 0
+    torch.cuda.reset_peak_memory_stats()
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase14_", dir=build)
+    try:
+        # 1. save and reload
+        t0 = time.perf_counter()
+        src = AKI.from_pretrained(None, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg, tok, dev = src.cfg, src.tokenizer, src.model.device
+        per_call = cfg.siglip.num_layers + cfg.phi3.num_layers
+        nbytes = sum(t.numel() * t.element_size() for t in src.model.state_dict().values())
+        free_disk = shutil.disk_usage(tmp).free
+        log(f"phase 14: aki_4b bf16 with the hash tokenizer's layout (output vocab "
+            f"{cfg.output_vocab}), weights {nbytes / 1e9:.3f} GB, init_seconds={init_s:.1f}, "
+            f"checkpoint dir {tmp} with {free_disk / 1e9:.1f} GB free")
+        if free_disk < 2 * nbytes:
+            raise SystemExit(f"chip_smoke: {free_disk / 1e9:.1f} GB free under {tmp}, the "
+                             f"checkpoint needs {nbytes / 1e9:.1f}")
+        t0 = time.perf_counter()
+        state = TrainState(src.model, make_optimizer(src.model, 0.0))
+        path = CheckpointManager(tmp).save(state, epoch=0, step=0, include_frozen=True)
+        save_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        aki = AKI.from_pretrained(tmp, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want_sd, got_sd = src.model.state_dict(), aki.model.state_dict()
+        unequal = [k for k in want_sd if k not in got_sd or not torch.equal(want_sd[k], got_sd[k])]
+        log(f"phase 14 reload: {len(got_sd)} tensors, file {file_bytes / 1e9:.3f} GB, "
+            f"save_seconds={save_s:.2f} load_seconds={load_s:.2f} (init + restore), "
+            f"bitwise_equal={not unequal and set(want_sd) == set(got_sd)}")
+        if unequal or set(want_sd) != set(got_sd):
+            raise SystemExit(f"chip_smoke: reloaded weights differ: {unequal[:4]}")
+        out.update(weights_bytes=nbytes, file_bytes=file_bytes, init_s=init_s, save_s=save_s,
+                   load_s=load_s)
+        del state
+
+        # 2. AKI.generate on the reloaded model against the engine on the
+        # model in memory; the prompt is rendered as answer renders it
+        png = png_bytes(0)
+        image = preprocess(decode_image(png), cfg.siglip.image_size)
+        question = " ".join(f"w{i}" for i in range(22))
+        ids = tok.encode(chat_prompt(question))
+        eos = tok.info.end_id
+        aki.generate([ids], image[None], max_new_tokens=2, eos_id=eos)    # warm-up
+        (toks, num), n, gen_ms = counted(lambda: aki.generate(
+            [ids], image[None], max_new_tokens=CONSUMER_NEW, eos_id=eos))
+        want, want_num = generate(src.model, [ids], image[None], [[1] * len(ids)],
+                                  CONSUMER_NEW, aki.max_len, eos_id=eos, policy=src.policy,
+                                  device=dev)
+        same = torch.equal(toks, want) and torch.equal(num, want_num)
+        out["launches"] += n
+        log(f"phase 14 AKI.generate: text_tokens={len(ids)} max_len={aki.max_len} "
+            f"generate_ms={gen_ms:.1f} launches={n} (want {per_call}) "
+            f"tokens={toks[0].tolist()} equal_to_engine={same}")
+        if n != per_call or not same:
+            raise SystemExit("chip_smoke: AKI.generate differs from the engine or its launches")
+        out["generate"] = dict(text_tokens=len(ids), ms=gen_ms, launches=n,
+                               tokens=toks[0].tolist())
+        del src, want_sd, got_sd
+
+        # 3. the CV-Bench eval: 8 samples in two buckets, batches of 4
+        rng = np.random.RandomState(1)
+        s_img = cfg.siglip.image_size
+        samples = []
+        for i in range(8):
+            q = " ".join(f"q{j}" for j in rng.randint(0, 99, 6 + (40 if i % 2 else 0)))
+            samples.append({"ids": tok.encode(eval_cv_bench.render_prompt(q, ["red", "blue"])),
+                            "image": (rng.rand(s_img, s_img, 3) * 2 - 1).astype(np.float32),
+                            "answer": "A", "source": ("COCO", "ADE20K", "Omni3D")[i % 3]})
+        buckets = sorted({eval_cv_bench.pick_bucket(len(s["ids"])) for s in samples})
+        batches = list(eval_cv_bench.batches(cfg, samples, EVAL_BATCH, EVAL_NEW))
+        preds, n, eval_ms = counted(lambda: eval_cv_bench.run_eval(
+            aki.model, tok, samples, batch_size=EVAL_BATCH, max_new_tokens=EVAL_NEW,
+            policy=aki.policy))
+        out["launches"] += n
+        direct = {}
+        for rows, b_ids, b_valid, b_imgs, max_len in batches:
+            b_toks, b_num = generate(aki.model, b_ids, b_imgs, b_valid, EVAL_NEW, max_len,
+                                     eos_id=eos, policy=aki.policy, device=dev)
+            for r, si in enumerate(rows):
+                direct[si] = tok.decode(b_toks[r, : int(b_num[r])].tolist())
+        same = [preds[i] == direct[i] for i in range(len(samples))]
+        _, report = eval_cv_bench.score(samples, preds)
+        log(f"phase 14 run_eval: {len(samples)} samples, buckets {buckets}, {len(batches)} "
+            f"batches of {EVAL_BATCH}, eval_ms={eval_ms:.1f} ms_per_batch="
+            f"{eval_ms / len(batches):.1f} launches={n} (want {per_call * len(batches)}) "
+            f"equal_to_direct_generate={same} report={report.splitlines()}")
+        if len(buckets) != 2 or n != per_call * len(batches) or not all(same):
+            raise SystemExit("chip_smoke: run_eval differs from generate on its batches")
+        out["run_eval"] = dict(samples=len(samples), buckets=buckets, batches=len(batches),
+                               ms=eval_ms, ms_per_batch=eval_ms / len(batches), launches=n,
+                               preds=preds, report=report)
+
+        # 4. beam search: K = 1 against greedy, then K = 4 with the ngram rule
+        greedy, _ = generate(aki.model, [ids], image[None], [[1] * len(ids)], CONSUMER_NEW,
+                             aki.max_len, policy=aki.policy, device=dev)
+        (k1, _, _), n1, _ = counted(lambda: generate_beam(
+            aki.model, [ids], image[None], [[1] * len(ids)], CONSUMER_NEW, aki.max_len,
+            num_beams=1, eos_id=-1, policy=aki.policy, device=dev))
+        (b_toks, b_lens, b_scores), n, beam_ms = counted(lambda: generate_beam(
+            aki.model, [ids], image[None], [[1] * len(ids)], CONSUMER_NEW, aki.max_len,
+            num_beams=BEAM_K, eos_id=eos, length_penalty=BEAM_PENALTY,
+            no_repeat_ngram_size=BEAM_NGRAM, num_return_sequences=BEAM_RETURN,
+            policy=aki.policy, device=dev))
+        _, _, prefill_ms = counted(lambda: prefill(aki.model, [ids], image[None],
+                                                   [[1] * len(ids)], aki.max_len,
+                                                   policy=aki.policy, device=dev))
+        out["launches"] += n1 + n
+        k1_same = torch.equal(k1[:, 0], greedy)
+        tf, ulps = beam_teacher_scores(aki, ids, image, b_toks[0], b_lens[0], aki.max_len,
+                                       BEAM_PENALTY)
+        got = b_scores[0].tolist()
+        lens = b_lens[0].tolist()
+        tols = [2 * BEAM_ULPS * u * ln / ln ** BEAM_PENALTY for u, ln in zip(ulps, lens)]
+        errs = [abs(a - b) for a, b in zip(got, tf)]
+        step_ms = (beam_ms - prefill_ms) / CONSUMER_NEW
+        log(f"phase 14 beam: K=1 equal_to_greedy={k1_same} launches={n1}; K={BEAM_K} "
+            f"ngram={BEAM_NGRAM} return={BEAM_RETURN}: launches={n} beam_ms={beam_ms:.1f} "
+            f"prefill_ms={prefill_ms:.1f} ms_per_beam_step={step_ms:.2f} lengths={lens} "
+            f"scores={got} teacher_forced={tf} |diff|={errs} tolerance={tols} "
+            f"tokens={b_toks[0].tolist()}")
+        if (not k1_same or n1 != per_call or n != per_call
+                or any(e > t for e, t in zip(errs, tols))):
+            raise SystemExit("chip_smoke: beam search failed a gate")
+        out["beam"] = dict(k1_equal_greedy=k1_same, num_beams=BEAM_K, ngram=BEAM_NGRAM,
+                           ms=beam_ms, prefill_ms=prefill_ms, ms_per_step=step_ms,
+                           launches=n, lengths=lens, scores=got, teacher_forced=tf,
+                           abs_err=errs, tolerance=tols)
+
+        # 5. AKI.answer on the PNG bytes of step 2's image, then the predict
+        # CLI on a JSONL of 4 requests with 4 slots
+        text, n, answer_ms = counted(lambda: aki.answer(png, question,
+                                                        max_new_tokens=CONSUMER_NEW))
+        out["launches"] += n
+        want_text = tok.decode(toks[0, : int(num[0])].tolist())
+        log(f"phase 14 AKI.answer: answer_ms={answer_ms:.1f} launches={n} "
+            f"equal_to_generate_text={text == want_text} text={text!r}")
+        if text != want_text or n != per_call:
+            raise SystemExit("chip_smoke: AKI.answer differs from step 2's tokens")
+        out["answer"] = dict(ms=answer_ms, launches=n, text=text)
+        del aki
+        free_cuda()
+        lines = []
+        for i in range(PREDICT_REQUESTS):
+            img_path = os.path.join(tmp, f"request{i}.png")
+            with open(img_path, "wb") as f:
+                f.write(png_bytes(10 + i, size=(320 + 64 * i, 240)))
+            lines.append(json.dumps({"image": img_path, "question": f"what is in picture {i} ?",
+                                     "id": f"r{i}"}))
+        with open(os.path.join(tmp, "requests.jsonl"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        answers = os.path.join(tmp, "answers.jsonl")
+        _, n, predict_ms = counted(lambda: predict.main([
+            "--checkpoint", tmp, "--input", os.path.join(tmp, "requests.jsonl"),
+            "--output", answers, "--slots", str(PREDICT_REQUESTS),
+            "--max-new-tokens", str(EVAL_NEW)]))
+        out["launches"] += n
+        with open(answers) as f:
+            got_answers = [json.loads(line) for line in f]
+        ok = ([a["id"] for a in got_answers] == [f"r{i}" for i in range(PREDICT_REQUESTS)]
+              and all(decoded_ids_ok(a["answer"], tok, cfg.output_vocab) for a in got_answers))
+        log(f"phase 14 predict.main: {PREDICT_REQUESTS} requests, {PREDICT_REQUESTS} slots, "
+            f"predict_ms={predict_ms:.1f} (load included) launches={n} "
+            f"answers_ok={ok} answers={got_answers}")
+        if not ok or n == 0 or n % per_call:
+            raise SystemExit("chip_smoke: predict.main's answers or launches are wrong")
+        out["predict"] = dict(requests=PREDICT_REQUESTS, ms=predict_ms, launches=n,
+                              answers=[a["answer"] for a in got_answers])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"phase 14: K1 launches {out['launches']}, checkpoint dir removed")
+    return out
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2567,6 +2853,11 @@ def main() -> int:
     k1_b48 = [c["k1"] for c in k6 if "k1" in c]
     coverage = tile_coverage(cases + k1_b48 + k6)
     k7_coverage = q8_tile_coverage(k7)
+    free_cuda()
+
+    # 14. loading and the user-facing consumers at full width
+    consumers = loading_and_consumers()
+    free_cuda()
 
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
@@ -2585,8 +2876,9 @@ def main() -> int:
         "replaces": "aki_tpu/ops/flash_mma.py:175 (_kernel_1kv) and "
                     "aki_tpu/ops/flash_mma.py:79 (_kernel); its lse output carries "
                     "aki_tpu/ops/flash_mma_bwd.py:68 (_lse_kernel)",
-        "launches": launches + train_launches["fwd"],
-        "launches_by_path": {"generate": launches, "train": train_launches["fwd"]},
+        "launches": launches + train_launches["fwd"] + consumers["launches"],
+        "launches_by_path": {"generate": launches, "train": train_launches["fwd"],
+                             "consumers": consumers["launches"]},
         "max_abs_err": max([c["max_abs_err"] for c in cases + k1_b48]
                            + [c["fwd_max_abs_err"] for c in bwd]),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2693,7 +2985,8 @@ def main() -> int:
         "tile_coverage": k7_coverage,
         "cases": k7,
     }]
-    record.update(int8_generate=int8_gen, prefill_attention=attn_times, serve=serve)
+    record.update(int8_generate=int8_gen, prefill_attention=attn_times, serve=serve,
+                  consumers=consumers)
     short = [(reps, seen) for reps, seen in PROFILER_SESSIONS
              if any(n % reps for n in seen.values()) or not seen]
     record["profiler_sessions"] = {"sessions": len(PROFILER_SESSIONS), "short": len(short)}

@@ -17,19 +17,42 @@ from aki_torch.models.aki import AKIModel
 from aki_torch.models.configs import aki_tiny
 
 ROOT = Path(__file__).resolve().parents[1]
+CONSUMER_MODULES = (
+    "aki_torch.data.tokenizer", "aki_torch.data.images", "aki_torch.data.sft.templates",
+    "aki_torch.convert", "aki_torch.convert.cli", "aki_torch.models.modeling",
+    "aki_torch.infer.eval_cv_bench", "aki_torch.infer.eval_yorn", "aki_torch.infer.predict",
+    "aki_torch.infer.vlmevalkit", "aki_torch.infer.demo", "aki_torch.infer.beam")
 
 
 def test_port_imports_neither_jax_nor_aki_tpu():
     modules = sorted(m.name for m in pkgutil.walk_packages(aki_torch.__path__, "aki_torch."))
     assert {"aki_torch.ops.flash_mma", "aki_torch.infer.engine", "aki_torch.infer.server",
             "aki_torch.models.quant", "aki_torch.ops.fused_quant",
-            "aki_torch.ops.decode_attention", "aki_torch.ops.flash_mma_q8"} <= set(modules)
+            "aki_torch.ops.decode_attention", "aki_torch.ops.flash_mma_q8",
+            *CONSUMER_MODULES} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aki_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_consumers_import_without_pillow_safetensors_or_transformers():
+    """The card's machine may lack these packages: the modules import them
+    only where they are used."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('PIL', 'safetensors', 'transformers', 'sentencepiece'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {CONSUMER_MODULES!r}: importlib.import_module(m)\n"
+        "from aki_torch.convert import from_jax_params\n"
+        "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
