@@ -19,7 +19,7 @@ from .common import (BF16, Policy, init_const, init_norm, init_normal,
 from .configs import AKIConfig
 from .embeddings import (DecoupledEmbedding, DecoupledLinear, decoupled_logits,
                          decoupled_lookup)
-from .fusion import SplicedBatch, splice_vision_tokens
+from .fusion import SplicedBatch, splice_vision_tokens, splice_vision_tokens_multi
 from .perceiver import PerceiverResampler
 from .phi3 import Phi3Model
 from .siglip import SigLIPVisionTransformer
@@ -87,12 +87,17 @@ class AKIOutput:
 def encode_vision(model: AKIModel, images: torch.Tensor, policy: Policy = BF16,
                   use_flash: bool = True, remat: bool = False,
                   remat_policy: str = "full") -> torch.Tensor:
-    """Pixels (B, H, W, C) -> vision tokens (B, n_vis, D_lm). The frozen
+    """Pixels (B, H, W, C) -> vision tokens (B, n_vis, D_lm), or
+    (B, N_img, H, W, C) -> (B, N_img, n_vis, D_lm) for interleaved rows (the
+    tower and the perceiver run once over the B * N_img images). The frozen
     tower runs without gradients (the counterpart of ``stop_gradient``); the
     perceiver stays differentiable, recomputed per block under ``remat``."""
+    lead = images.shape[:-3]
+    images = images.reshape(-1, *images.shape[-3:])
     with torch.no_grad():
         feats = model.vision_encoder(images, policy, use_flash)
-    return model.vision_tokenizer(feats, policy, remat, remat_policy)
+    toks = model.vision_tokenizer(feats, policy, remat, remat_policy)
+    return toks.reshape(*lead, *toks.shape[1:])
 
 
 def embed_text(model: AKIModel, ids: torch.Tensor, policy: Policy = BF16) -> torch.Tensor:
@@ -144,7 +149,10 @@ def aki_forward(
     """Training/eval forward over the whole spliced sequence.
 
     input_ids (B, T_txt) with one ``<image>`` per row; images (B, H, W, C)
-    (or None with ``vision_tokens``); attn_valid (B, T_txt) right-padded 0/1;
+    (or None with ``vision_tokens``), or (B, N_img, H, W, C) for interleaved
+    rows (the j-th ``<image>`` of a row takes its j-th image, through
+    :func:`~aki_torch.models.fusion.splice_vision_tokens_multi`; ``order``
+    does not apply); attn_valid (B, T_txt) right-padded 0/1;
     labels optional (B, T_txt) with -100 on prompt/pad; order
     ``"image_first"`` (MMA) or ``"text_first"`` (DOT ablation); remat
     recomputes each Perceiver block and decoder layer in the backward
@@ -157,9 +165,15 @@ def aki_forward(
     if vision_tokens is None:
         vision_tokens = encode_vision(model, to(images), policy, use_flash, remat,
                                       remat_policy)
-    sp = splice_vision_tokens(embed_text(model, input_ids, policy), vision_tokens,
-                              input_ids, attn_valid, cfg.media_token_id,
-                              cfg.assistant_token_id, labels=labels, order=order)
+    text_embeds = embed_text(model, input_ids, policy)
+    if vision_tokens.dim() == 4:
+        sp = splice_vision_tokens_multi(text_embeds, vision_tokens, input_ids, attn_valid,
+                                        cfg.media_token_id, cfg.assistant_token_id,
+                                        labels=labels)
+    else:
+        sp = splice_vision_tokens(text_embeds, vision_tokens, input_ids, attn_valid,
+                                  cfg.media_token_id, cfg.assistant_token_id, labels=labels,
+                                  order=order)
     hidden, _ = model.lang_model.model(sp.embeds, sp.positions, spec=sp.spec,
                                        kv_valid=sp.attn_valid, policy=policy,
                                        use_flash=use_flash, remat=remat,

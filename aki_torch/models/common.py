@@ -1,22 +1,19 @@
 """Shared primitives (counterpart of ``aki_tpu/models/common.py``): the
-mixed-precision policy, the two norms, and the device rule of the entry
-points."""
+mixed-precision policy, the two norms, the device rule of the entry points,
+and the per-layer recompute policies (``aki_tpu/models/phi3.py
+_remat_policy``)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
-
-# Per-layer recompute policies (counterpart of ``aki_tpu/models/phi3.py
-# _remat_policy``, passed as an argument rather than read from the
-# environment): "full" saves each layer's inputs only and recomputes the
-# whole layer in the backward. The JAX "dots" / "dots_nowide" selective
-# policies compute the same numbers and are not ported yet.
-REMAT_POLICIES = ("full",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,15 +44,103 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def remat_call(remat: bool, policy: str, fn, *args):
+# Per-layer recompute policies, passed as an argument (the JAX package reads
+# AKI_REMAT_POLICY; the CLIs here read it too). All give the same numbers:
+# - "full": keep each layer's inputs only, recompute the whole layer;
+# - "dots": also keep the output of every matrix product without batch dims
+#   (aten.mm / aten.addmm: the projections; jax's
+#   dots_with_no_batch_dims_saveable), recompute the rest: norms, rope,
+#   activations and the attention (the flash forward is no product);
+# - "dots_nowide": "dots" except products wider than WIDE_PRODUCT outputs
+#   (at AKI-4B the MLP's gate and up projections, 8,192 each).
+REMAT_POLICIES = ("full", "dots", "dots_nowide")
+WIDE_PRODUCT = 4096
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# The dispatch mode of the recomputed region this thread runs, if any: it is
+# entered around each product (:func:`linear`) only, so that the region's
+# other ops run without a Python dispatch each
+_REGION = threading.local()
+
+
+def _keep(out: torch.Tensor) -> torch.Tensor:
+    """A product's output as the region keeps it until the backward."""
+    return out.detach()
+
+
+class _KeepProducts(TorchDispatchMode):
+    """Forward of a recomputed region, around each product: the output of
+    its matrix product (mm / addmm) goes to ``store`` in call order when
+    ``policy`` keeps it (None where it does not)."""
+
+    def __init__(self, store: list, policy: str, parts: dict[int, int]):
+        super().__init__()
+        self.store, self.policy, self.parts = store, policy, parts
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _PRODUCTS:
+            width = out.shape[-1]
+            wide = self.parts.get(width, width) > WIDE_PRODUCT
+            keep = not (self.policy == "dots_nowide" and wide)
+            self.store.append(_keep(out) if keep else None)
+        return out
+
+
+class _ReuseProducts(TorchDispatchMode):
+    """Recompute of the region in the backward, around each product: a
+    product kept by :class:`_KeepProducts` is taken from ``store`` instead
+    of being run again (autograd records it as it did in the forward);
+    every other op runs."""
+
+    def __init__(self, store: list):
+        super().__init__()
+        self.store, self.next = store, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _PRODUCTS and self.next < len(self.store):
+            kept, self.store[self.next] = self.store[self.next], None
+            self.next += 1
+            if kept is not None:
+                return kept
+        return func(*args, **(kwargs or {}))
+
+
+def remat_call(remat: bool, policy: str, fn, *args, parts: dict[int, int] | None = None):
     """``fn(*args)``; with ``remat`` and autograd recording, under
     ``torch.utils.checkpoint`` (non-reentrant), so that the backward
-    recomputes ``fn`` instead of keeping its activations."""
+    recomputes ``fn`` instead of keeping its activations, keeping what
+    ``policy`` (one of :data:`REMAT_POLICIES`) keeps. ``parts`` maps the
+    output width of a fused product to the width of the widest product it
+    stands for (a layer's qkv and gate/up projections are one product
+    each here, three and two in the JAX package), for ``dots_nowide``.
+
+    The selective policies keep the products that :func:`linear` computes
+    (in the regions, every product without batch dims: the projections)
+    through a pair of dispatch modes of their own, entered around each such
+    product, rather than ``create_selective_checkpoint_contexts``: its modes
+    see every op of the region (a Python dispatch each: ~0.3 s of host time
+    a full-width pretrain step on an H100 when measured with modes so
+    placed)."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"remat policy {policy!r} is not one of {REMAT_POLICIES}")
-    if remat and torch.is_grad_enabled():
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if policy == "full":
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    store: list = []
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+        _in_region(_KeepProducts(store, policy, parts or {})),
+        _in_region(_ReuseProducts(store))))
+
+
+@contextlib.contextmanager
+def _in_region(mode: TorchDispatchMode):
+    outer = getattr(_REGION, "mode", None)
+    _REGION.mode = mode
+    try:
+        yield
+    finally:
+        _REGION.mode = outer
 
 
 def layernorm(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
@@ -82,8 +167,15 @@ def empty(module_cls, *args, device, dtype, **kw) -> nn.Module:
 
 
 def linear(lin: nn.Linear, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+    """``lin`` applied to ``x`` in the compute dtype; in a recomputed region
+    of a selective policy, under the region's dispatch mode."""
     bias = None if lin.bias is None else policy.cast(lin.bias)
-    return F.linear(x, policy.cast(lin.weight), bias)
+    weight = policy.cast(lin.weight)
+    mode = getattr(_REGION, "mode", None)
+    if mode is None:
+        return F.linear(x, weight, bias)
+    with mode:
+        return F.linear(x, weight, bias)
 
 
 def init_normal(gen: torch.Generator, std: float, *tensors) -> None:

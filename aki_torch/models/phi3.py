@@ -270,7 +270,12 @@ class Phi3Model(nn.Module):
                            .to(torch.int32) + 1).contiguous()
             step = _CacheStep(cache, wpos, rows, lengths, live_width)
         remat = remat and cache is None
+        # the fused qkv and gate/up products stand for JAX's q, k, v and
+        # gate, up (dots_nowide's width rule)
+        parts = {(cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim:
+                 max(cfg.num_heads, cfg.num_kv_heads) * cfg.head_dim,
+                 2 * cfg.intermediate_size: cfg.intermediate_size}
         for li, layer in enumerate(self.layers):
             x = remat_call(remat, remat_policy, layer, x, cos, sin, cfg, spec, kv_valid,
-                           q_offset, step, li, policy, use_flash)
+                           q_offset, step, li, policy, use_flash, parts=parts)
         return rmsnorm(policy.cast(self.norm.weight), x, cfg.rms_norm_eps), cache

@@ -2,8 +2,8 @@
 (counterpart of ``aki_tpu/train/runner.py``, single device).
 
 ``RunnerConfig`` has the JAX runner's single-device fields only; the mesh,
-ZeRO-2, host-offload, pipeline and MoE fields are not ported, so a config
-that needs them cannot be built.
+ZeRO-2, parameter host offload, pipeline and MoE fields are not ported, so a
+config that needs them cannot be built (the CLIs refuse such YAML).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ class RunnerConfig:
     order: str = "image_first"         # MMA | DOT ablation ("text_first")
     training_mode: str = "scratch"     # scratch | resume | sft_resume | sft_scratch
     log_every: int = 10
+    host_offload: bool = False         # the "full" remat policy (train/step.py)
     frozen_bf16: bool = False          # store the frozen tower in bf16
 
 
@@ -94,8 +95,8 @@ class Trainer:
 
         self.step_fn = make_train_step(
             model_cfg, policy=self.policy, remat=run_cfg.remat, grad_accum=run_cfg.grad_accum,
-            order=run_cfg.order,
-            remat_policy=run_cfg.remat_policy, device=self.device)
+            order=run_cfg.order, remat_policy=run_cfg.remat_policy, device=self.device,
+            host_offload=run_cfg.host_offload)
         self.metrics = metrics if metrics is not None else MetricsLogger(run_cfg.run_dir)
 
     @property

@@ -3,7 +3,11 @@
 
 - forward/backward under the bf16 compute policy with fp32 master
   parameters, each decoder layer and Perceiver block recomputed in the
-  backward under ``remat``;
+  backward under ``remat`` (keeping what ``remat_policy`` keeps);
+  ``host_offload`` (the JAX step's region that moves the ``dots`` products
+  to pinned host memory) is the ``full`` policy here: the regions are the
+  layers, whose inputs stay on the device, so host copies of the products
+  would free nothing that ``full`` keeps, and they cost time;
 - gradient accumulation is a Python loop over the micro-batches, each loss
   divided by the factor, so ``.grad`` holds the mean; frozen parameters have
   ``requires_grad=False`` and never get a ``.grad``;
@@ -57,7 +61,11 @@ class Batch:
 
 def make_loss_fn(cfg: AKIConfig, policy: Policy, remat: bool, use_flash: bool,
                  order: str = "image_first", remat_policy: str = "full",
-                 device="cuda") -> Callable[[AKIModel, Batch], torch.Tensor]:
+                 device="cuda", host_offload: bool = False
+                 ) -> Callable[[AKIModel, Batch], torch.Tensor]:
+    if host_offload:
+        remat, remat_policy = True, "full"
+
     def loss_fn(model: AKIModel, batch: Batch) -> torch.Tensor:
         out = aki_forward(model, batch.input_ids, batch.images, batch.attn_valid,
                           labels=batch.labels, policy=policy, use_flash=use_flash,
@@ -79,12 +87,14 @@ def make_train_step(
     loss_scale: float = 1.0,
     remat_policy: str = "full",
     device="cuda",
+    host_offload: bool = False,
 ) -> Callable[[TrainState, Batch | tuple[Batch, ...]], dict]:
     """Build ``train_step(state, batch) -> {"loss", "grad_norm"}`` (0-d
     tensors on the device; nothing syncs with the host). ``batch`` holds
     ``grad_accum`` stacked micro-batches when ``grad_accum > 1``; a tuple of
     such batches is one step over several datasets."""
-    loss_fn = make_loss_fn(cfg, policy, remat, use_flash, order, remat_policy, device)
+    loss_fn = make_loss_fn(cfg, policy, remat, use_flash, order, remat_policy, device,
+                           host_offload)
 
     def accumulate(model, batch: Batch) -> torch.Tensor:
         """Backward of one dataset's (mean over micro-batches) loss into

@@ -19,7 +19,9 @@ Phases, each fatal on failure:
      ran as the kernel counts them (flash_mma.count_tiles), held to the
      mirror flash_mma_args.tile_classes, with times beside the bound and
      the PyTorch library call: the wrapper's and SDPA's call times (CUDA
-     events) and their device times alone (torch.profiler);
+     events) and their device times alone (torch.profiler); and at the
+     pretrain CLI's interleaved rows (4 x 1,114 tokens, the multi-tile
+     route, six rectangles a row: open, empty and parked);
   4. generation: aki_4b() at full width (27-layer SigLIP, 6-layer Perceiver,
      32-layer Phi-3.5-mini), random bf16 weights from a seeded generator,
      32 greedy tokens for two requests (one 384x384 image + a prompt of
@@ -31,7 +33,9 @@ Phases, each fatal on failure:
      then the forward kernel's output and lse and the backward kernels (dq,
      dkv) against the plain versions in bf16, at the training shape (2 x
      655 tokens: 512 text tokens, one <image> spliced to 144 vision tokens,
-     the second row right-padded), the SigLIP non-causal shape and edge
+     the second row right-padded), the interleaved rows (4 x 1,114, six
+     rectangles a row, timed as the training shape), the SigLIP
+     non-causal shape and edge
      cases of the backward's tile classes and walks (16 images with edges
      at tile boundaries and one off, q_offset with T < S and kv_valid
      holes, GQA 32/8 at the training length, dead rows, 128-row blocks at
@@ -46,7 +50,8 @@ Phases, each fatal on failure:
   7. whole-model gradients: aki_4b() at full width and depth (fp32 master
      weights, bf16 compute, remat) on one training batch, loss and
      gradients with the kernels against the plain attention, both against
-     f32 compute, with the launches of that one step;
+     f32 compute, with the launches of that one step; then the same on one
+     interleaved batch (4 rows of 256 text tokens and six image slots);
   8. the Trainer at full aki_4b() width: bf16 frozen tower, remat,
      grad_accum 2, four AdamW steps on the same two micro-batches; loss,
      grad_norm, step ms, tokens/s, peak memory and launches per step;
@@ -113,7 +118,27 @@ Phases, each fatal on failure:
      K = 1 equal to greedy, and K = 4 (3-gram rule, 2 hypotheses returned)
      whose scores equal a teacher-forced recomputation within one bf16 ulp
      of the logits a step; AKI.answer on PNG bytes equal to generate's text;
-     the predict CLI answering 4 requests with 4 slots. Wall times of each.
+     the predict CLI answering 4 requests with 4 slots. Wall times of each;
+ 15. the training CLIs at full aki_4b() width and depth in bf16 (the hash
+     tokenizer's layout), on synthetic data made under build/phase15 from a
+     seed: aki_torch.train.pretrain.main on the shipped pretrain.yaml, its
+     blip3_kale block (batch 8 x 128 text, 4 webdataset shards of JPEGs of
+     random pixels in sizes other than 384) and its mmc4 block enabled as
+     written (type interleaved, batch 4 x 256 text, 6 image slots; 4 shards
+     of JSON samples of 2-8 base64 images, some rows keeping fewer than 6),
+     3 optimizer steps, each one batch of each; aki_torch.train.sft.main on
+     the shipped training_config (max_length 512, batch 4, sft_scratch in
+     an empty run dir) over LLaVA-Instruct and VQAv2 files, 3 steps; both
+     under the JAX default recompute policy dots. Gates: finite logged
+     losses, the K1 / dq / dkv launches of every step equal to cli_launches,
+     the final checkpoint (~47 GB: fp32 weights and AdamW's moments) read
+     back memory-mapped equal to the model on a sample of tensors, peak
+     memory under 80 GB; step ms, the runner's data ms, spliced tokens/s,
+     one profiled step's idle share; each run dir deleted after its gates.
+     Then pretrain steps under each recompute policy (full, dots,
+     dots_nowide, and the host_offload flag) at learning rate 0: loss and
+     grad_norm bitwise equal; peak memory, step ms over 3 rounds that take
+     the policies in turn, and one profiled step's device busy time of each.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -222,6 +247,9 @@ SERVE_FIRST_TOKEN_CHECKS, SERVE_FIRST_TOKEN_MIN, SERVE_GAP_FACTOR = 8, 4, 2.0
 KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd", "fused_quant", "decode_attention",
                   "flash_mma_q8")
 TRAIN_TEXT = 512          # text tokens per training row; one <image> -> 144
+# interleaved rows: the pretrain YAML's mmc4 block (max_text_len 256,
+# max_num_images 6): 256 + 6 * 143 = 1,114 spliced tokens
+INTER_TEXT, INTER_IMAGES = 256, 6
 # Phase 6: a backward case (forward, backward, plain versions) and its
 # timings each end within these seconds, or the script fails: the
 # producer and consumers of a kernel that walk different tile lists wait
@@ -241,6 +269,14 @@ BEAM_K, BEAM_NGRAM, BEAM_RETURN, BEAM_PENALTY = 4, 3, 2, 1.0
 # logit that moves by u moves a log-softmax by at most 2u), summed over
 # the hypothesis and scaled as its score is.
 BEAM_ULPS = 1
+# Phase 15: the training CLIs' optimizer steps; the policies of the table
+# (host_offload: the flag, which is the full policy), whose loss and
+# grad_norm must be bitwise equal (the same operations on the same weights;
+# K3 is deterministic); the card's memory
+CLI_STEPS = 3
+REMAT_TABLE = ("full", "dots", "dots_nowide", "host_offload")
+POLICY_ROUNDS = 3
+PEAK_LIMIT_BYTES = 80e9
 
 
 def log(*args):
@@ -292,7 +328,8 @@ def profile_call(name: str, fn, reps: int = 3, host: bool = False) -> None:
     profiler can miss launches, and then the busy time is a lower bound
     and the idle share an upper one. ``host`` adds one more call traced on
     the host as well, and prints its costliest host operations by self
-    time."""
+    time. Returns the median call's wall and busy ms and idle share (None
+    when the profiler saw no device event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -329,7 +366,7 @@ def profile_call(name: str, fn, reps: int = 3, host: bool = False) -> None:
     if any(r[2] == 0 for r in runs):
         log(f"profile {name}: wall_ms={[round(r[1], 3) for r in runs]} device time "
             f"not measured (the profiler saw no device events)")
-        return
+        return None
     runs.sort(key=lambda r: r[0])
     idle, wall_ms, busy_ms, per_name, port = runs[len(runs) // 2]
     if host:
@@ -350,6 +387,8 @@ def profile_call(name: str, fn, reps: int = 3, host: bool = False) -> None:
                      for k, (g, n, ms) in port.items()) or "none")
         + " (all calls: " + str([{k: v[:2] for k, v in r[4].items()} for r in runs]) + ")"
         + " top=" + "; ".join(f"{k[:60]}={v:.3f}" for k, v in top))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=idle,
+                idle_shares=[r[0] for r in runs])
 
 
 def prompt_ids(cfg, n_txt: int, gen: torch.Generator) -> torch.Tensor:
@@ -598,15 +637,17 @@ def time_forward(name, q, k, v, kw, rounds=1) -> dict:
 
 def kernel_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None,
                 kv_valid=None, q_offset=0, timed=False, zero_rows=None, lse=False,
-                spread=False):
+                spread=False, spec=None):
     """One kernel-vs-plain comparison on the card; returns its record, with
     the tile classes the call ran. ``zero_rows`` = (batch row, query rows)
     that must come out exactly 0; ``lse`` also holds the forward's row
     logsumexp to the plain one (LSE_ATOL, +inf on the same rows);
-    ``spread`` takes q and k from spread_qk."""
+    ``spread`` takes q and k from spread_qk; ``spec`` (per row) in place of
+    ``rects`` (the same for every row)."""
     from aki_torch.ops.flash_mma import count_tiles, flash_mma_attention, flash_mma_forward
 
-    q, k, v, spec = case_inputs(b, t, s, h, hkv, d, gen, rects)
+    q, k, v, rect_spec = case_inputs(b, t, s, h, hkv, d, gen, rects)
+    spec = rect_spec if spec is None else spec
     if spread:
         q, k = spread_qk(q, k, gen)
     kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
@@ -681,6 +722,50 @@ def train_spec(cfg, batch):
                               torch.zeros(ids.shape[0], cfg.perceiver.num_latents, d), ids,
                               torch.as_tensor(batch.attn_valid), cfg.media_token_id,
                               cfg.assistant_token_id)
+    return sp.embeds.shape[1], sp.spec, sp.attn_valid
+
+
+def interleaved_rows(cfg, gen: torch.Generator):
+    """One interleaved micro-batch at the shapes of the pretrain YAML's mmc4
+    block (4 rows of INTER_TEXT text tokens, INTER_IMAGES image slots), as a
+    loader gives it (numpy): rows 0 and 1 carry six <image> tokens, rows 2
+    and 3 three and two (their other blocks parked); each has an
+    <|assistant|> token, after the images (rows 0, 2), among them (row 1)
+    or before them (row 3: empty rectangles), so that the spec holds open,
+    empty and parked blocks; rows 1 and 3 right-padded; labels on every
+    valid token; missing images zero, the others in [-1, 1] at 384x384."""
+    import numpy as np
+
+    from aki_torch.train.step import Batch
+
+    layouts = [([2, 40, 80, 120, 160, 200], 230, 256), ([5, 30, 60, 150, 180, 210], 100, 240),
+               ([10, 90, 170], 220, 256), ([50, 130], 20, 200)]
+    ids = torch.randint(100, 32000, (len(layouts), INTER_TEXT), generator=gen)
+    valid = torch.zeros_like(ids, dtype=torch.int32)
+    s = cfg.siglip.image_size
+    images = torch.rand(len(layouts), INTER_IMAGES, s, s, 3, generator=gen) * 2 - 1
+    for row, (media, asst, n_valid) in enumerate(layouts):
+        ids[row, media] = cfg.media_token_id
+        ids[row, asst] = cfg.assistant_token_id
+        ids[row, n_valid:] = cfg.pad_token_id
+        valid[row, :n_valid] = 1
+        images[row, len(media):] = 0
+    labels = torch.where(valid == 1, ids, -100)
+    return Batch(ids.numpy(), images.numpy(), valid.numpy(), labels.numpy().astype(np.int64))
+
+
+def interleaved_spec(cfg, batch):
+    """The spliced length, (B, N_img) MMA spec and key validity of an
+    interleaved batch, from the port's own multi-image splice (on the CPU,
+    zero embeddings)."""
+    from aki_torch.models.fusion import splice_vision_tokens_multi
+
+    ids = torch.as_tensor(batch.input_ids)
+    b, n_img, d = ids.shape[0], batch.images.shape[1], 8
+    sp = splice_vision_tokens_multi(torch.zeros(*ids.shape, d),
+                                    torch.zeros(b, n_img, cfg.perceiver.num_latents, d), ids,
+                                    torch.as_tensor(batch.attn_valid), cfg.media_token_id,
+                                    cfg.assistant_token_id)
     return sp.embeds.shape[1], sp.spec, sp.attn_valid
 
 
@@ -1082,9 +1167,11 @@ def zero_launch_counts() -> None:
     flash_mma_attention.launches = run_backward.dq_launches = run_backward.dkv_launches = 0
 
 
-def whole_model_grads(cfg, batch) -> dict:
+def whole_model_grads(cfg, batch, label: str = "training") -> dict:
     """Phase 7: loss and gradients of one training batch at full width and
-    depth, with the kernels against the plain attention."""
+    depth, with the kernels against the plain attention. The tower runs once
+    per batch over all its images (an interleaved batch's too), so the
+    launches of one step do not depend on the images a row carries."""
     from aki_torch.models.aki import AKIModel
     from aki_torch.models.common import BF16, F32
     from aki_torch.train.step import Batch, make_loss_fn
@@ -1122,7 +1209,8 @@ def whole_model_grads(cfg, batch) -> dict:
     rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
     want = {"fwd": cfg.siglip.num_layers + 2 * cfg.phi3.num_layers,
             "dq": cfg.phi3.num_layers, "dkv": cfg.phi3.num_layers}
-    log(f"whole-model grads: loss kernel={kern['loss']:.6f} plain={plain['loss']:.6f} "
+    log(f"whole-model grads ({label}, {tuple(batch.input_ids.shape)} text, images "
+        f"{tuple(batch.images.shape)}): loss kernel={kern['loss']:.6f} plain={plain['loss']:.6f} "
         f"f32={f32['loss']:.6f} rel_diff={rel:.3g} (tol {LOSS_RTOL}); grad cosine kernel vs "
         f"plain (min {GRAD_COSINE_MIN}) " + " ".join(f"{k}={c:.6f}" for k, c in cos_kp.items())
         + "; to the f32 run kernel/plain " + " ".join(
@@ -1137,7 +1225,7 @@ def whole_model_grads(cfg, batch) -> dict:
         raise SystemExit("chip_smoke: whole-model gradients with the kernels differ from plain")
     if kern["launches"] != want or plain["launches"]["dq"] or plain["launches"]["dkv"]:
         raise SystemExit("chip_smoke: whole-model step did not launch the kernels as expected")
-    return dict(loss=kern["loss"], plain_loss=plain["loss"], f32_loss=f32["loss"],
+    return dict(label=label, loss=kern["loss"], plain_loss=plain["loss"], f32_loss=f32["loss"],
                 loss_rel_diff=rel, grad_cosine=cos_kp, grad_cosine_to_f32=cos_k32,
                 plain_grad_cosine_to_f32=cos_p32, launches=kern["launches"])
 
@@ -2611,6 +2699,322 @@ def loading_and_consumers() -> dict:
     return out
 
 
+def cli_launches(cfg, n_datasets: int) -> dict[str, int]:
+    """K1, dq and dkv launches of one optimizer step over ``n_datasets``
+    batches, from the code: per batch the tower runs once over all its
+    images without gradient (one K1 per SigLIP layer), the decoder's forward
+    one K1 with lse per layer, and its backward per layer the recompute (one
+    K1: the flash forward is no product, so every policy recomputes it)
+    and one dq and one dkv (``train/step.py``, ``models/phi3.py``,
+    ``ops/flash_mma.py``). The perceiver attends without the kernel."""
+    sig, dec = cfg.siglip.num_layers, cfg.phi3.num_layers
+    return {"fwd": n_datasets * (sig + 2 * dec), "dq": n_datasets * dec,
+            "dkv": n_datasets * dec}
+
+
+def spliced_tokens(batch, n_vis: int) -> int:
+    """Spliced tokens of a step's device batch (a tuple: one per dataset)."""
+    total = 0
+    for b in batch if isinstance(batch, tuple) else (batch,):
+        rows, t = b.input_ids.shape
+        n_img = b.images.shape[1] if b.images.dim() == 5 else 1
+        total += rows * (t + n_img * (n_vis - 1))
+    return total
+
+
+def counted_trainer(record: dict):
+    """The port's Trainer, recording into ``record`` each optimizer step's
+    launches and time (CUDA events; the step synchronised, as the runner's
+    log_every=1 does), the first step's device batch and its step function
+    (for the profile and the policy table), and the final save's seconds."""
+    from aki_torch.train.runner import Trainer
+
+    class CountedTrainer(Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            inner = record["step_fn"] = self.step_fn
+
+            def step_fn(state, batch):
+                record.setdefault("batch", batch)
+                zero_launch_counts()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                m = inner(state, batch)
+                end.record()
+                end.synchronize()
+                record["steps"].append(dict(ms=start.elapsed_time(end),
+                                            launches=launch_counts()))
+                return m
+            self.step_fn = step_fn
+            record["trainer"], record["run_dir"] = self, self.cfg.run_dir
+
+        def finish(self, epoch):
+            t0 = time.perf_counter()
+            super().finish(epoch)
+            record["save_s"] = time.perf_counter() - t0
+
+    return CountedTrainer
+
+
+def run_cli(name: str, module, argv: list[str], cfg, n_datasets: int, card: str) -> tuple:
+    """Phase 15, one CLI: ``module.main(argv)`` on the card with the counted
+    Trainer, then its gates: CLI_STEPS finite logged losses, the derived
+    launches in every step, the final checkpoint on disk and equal to the
+    model (a memory-mapped read of a sample of tensors), peak memory under
+    PEAK_LIMIT_BYTES; then one profiled step, and the run dir deleted.
+    Returns (record, the first step's device batch)."""
+    import shutil
+
+    from aki_torch.train.checkpoints import CheckpointManager
+
+    rec: dict = {"steps": []}
+    original = module.Trainer
+    module.Trainer = counted_trainer(rec)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        module.main(argv)
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        trainer, batch, inner = rec.pop("trainer"), rec.pop("batch"), rec.pop("step_fn")
+        run_dir = trainer.cfg.run_dir
+        logged = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+        losses = [m["training_loss"] for m in logged]
+        want = cli_launches(cfg, n_datasets)
+        tokens = spliced_tokens(batch, cfg.perceiver.num_latents)
+        step_ms = statistics.median(st["ms"] for st in rec["steps"])
+        out = dict(name=name, argv=argv, losses=losses,
+                   grad_norms=[m["grad_norm"] for m in logged], steps=rec["steps"],
+                   step_ms=step_ms, tokens_per_step=tokens,
+                   tokens_per_s=tokens / step_ms * 1e3, data_ms=logged[-1]["data_time"] * 1e3,
+                   runner_step_ms=logged[-1]["step_time"] * 1e3, peak_bytes=peak,
+                   remat_policy=trainer.cfg.remat_policy, wall_s=wall_s, save_s=rec.get("save_s"),
+                   launches_want=want)
+        log(f"phase 15 {name}: {len(rec['steps'])} steps, losses={losses} grad_norms="
+            f"{out['grad_norms']} step_ms={[round(st['ms'], 1) for st in rec['steps']]} (median "
+            f"{step_ms:.1f}) data_ms={out['data_ms']:.1f} (runner's data_time, mean of the steps) "
+            f"spliced tokens/step={tokens} tokens_per_s={out['tokens_per_s']:.1f} "
+            f"peak_gb={peak / 1e9:.3f} policy={out['remat_policy']} main_s={wall_s:.1f} "
+            f"launches per step={[st['launches'] for st in rec['steps']]} (want {want}) ({card})")
+        if len(losses) != CLI_STEPS or not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"chip_smoke: {name} logged {losses}, want {CLI_STEPS} finite losses")
+        if len(rec["steps"]) != CLI_STEPS or any(st["launches"] != want for st in rec["steps"]):
+            raise SystemExit(f"chip_smoke: {name} launches per step differ from {want}")
+        if peak >= PEAK_LIMIT_BYTES:
+            raise SystemExit(f"chip_smoke: {name} peak memory {peak / 1e9:.2f} GB")
+
+        # the final checkpoint, read back memory-mapped: a sample of the weights
+        # and of the optimizer's moments against the live tensors
+        path = CheckpointManager(run_dir).latest()
+        if path is None:
+            raise SystemExit(f"chip_smoke: {name} wrote no checkpoint")
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        blob = torch.load(path, map_location="cpu", mmap=True, weights_only=False)
+        live = trainer.model.state_dict()
+        names = list(blob["model_state_dict"])
+        sample = names[:: max(1, len(names) // 12)] + names[-1:]
+        same = all(torch.equal(blob["model_state_dict"][k], live[k].cpu()) for k in sample)
+        moments = blob["optimizer_state_dict"]["adamw"]["state"]
+        live_moments = trainer.state.optimizer.state_dict()["adamw"]["state"]
+        idx = sorted(moments)[:: max(1, len(moments) // 6)]
+        same_m = all(torch.equal(moments[i][key], live_moments[i][key].cpu())
+                     for i in idx for key in ("exp_avg", "exp_avg_sq"))
+        read_s = time.perf_counter() - t0
+        out.update(checkpoint=os.path.basename(path), checkpoint_bytes=size,
+                   checkpoint_step=blob["step"], checkpoint_read_s=read_s,
+                   checkpoint_tensors_checked=len(sample) + 2 * len(idx))
+        log(f"phase 15 {name} checkpoint {out['checkpoint']}: {size / 1e9:.3f} GB, save "
+            f"{out['save_s']:.1f} s (host copy + torch.save), step {blob['step']}, "
+            f"{len(sample)} weights and {2 * len(idx)} moments equal={same and same_m} "
+            f"(read {read_s:.1f} s) ({card})")
+        del blob, moments, live_moments
+        if not (same and same_m) or out["checkpoint_step"] != CLI_STEPS:
+            raise SystemExit(f"chip_smoke: {name} checkpoint does not reload the model")
+
+        # one profiled optimizer step on the first step's batch (more updates:
+        # after the checkpoint's gates)
+        out["profile"] = prof = profile_call(f"{name}_step", lambda: inner(trainer.state, batch))
+        log(f"phase 15 {name} summary: step_ms={step_ms:.1f} data_ms={out['data_ms']:.1f} "
+            f"spliced_tokens_per_s={out['tokens_per_s']:.1f} idle_share="
+            f"{'not measured' if prof is None else round(prof['idle_share'], 3)} "
+            f"peak_gb={peak / 1e9:.3f} checkpoint_gb={size / 1e9:.3f} save_s={out['save_s']:.1f} "
+            f"({card})")
+        return out, batch
+    finally:
+        module.Trainer = original
+        # the checkpoint (~47 GB) goes whether or not a gate failed, so
+        # that a later run finds the disk as this one did
+        if "run_dir" in rec:
+            shutil.rmtree(rec["run_dir"], ignore_errors=True)
+
+
+def policy_table(cfg, batch, card: str) -> list[dict]:
+    """Phase 15: optimizer steps of the pretrain CLI's first batch under each
+    recompute policy, on one model with the learning rate 0 (every step sees
+    the same weights): loss, grad_norm and launches of each; its peak memory
+    (the first timed call); its step ms, the median of POLICY_ROUNDS rounds
+    that take the policies in turn (CUDA events; the host moves between
+    calls, so the policies are compared in rounds, not one after another);
+    and the device's busy time and idle share over three profiled steps."""
+    import shutil
+
+    from aki_torch.train.metrics import MetricsLogger
+    from aki_torch.train.runner import RunnerConfig, Trainer
+
+    run_dir = os.path.join(ROOT, "build", "phase15", "policies")
+    trainer = Trainer(cfg, RunnerConfig(
+        run_dir=run_dir, learning_rate=0.0, warmup_steps=0, lr_schedule="constant",
+        total_steps=10**9, checkpoint_steps=10**9, log_every=10**9, seed=42), device="cuda",
+        metrics=MetricsLogger(run_dir, use_tensorboard=False))
+    try:
+        rows = policy_rows(cfg, trainer, batch, card)
+    finally:
+        trainer.metrics.close()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    ref = rows[0]
+    want = cli_launches(cfg, len(batch) if isinstance(batch, tuple) else 1)
+    for r in rows:
+        if (r["loss"], r["grad_norm"]) != (ref["loss"], ref["grad_norm"]):
+            raise SystemExit(f"chip_smoke: policy {r['policy']} moves the loss or grad_norm: "
+                             f"{r['loss']!r}, {r['grad_norm']!r} under it, {ref['loss']!r}, "
+                             f"{ref['grad_norm']!r} under {ref['policy']}")
+        if r["launches"] != want:
+            raise SystemExit(f"chip_smoke: policy {r['policy']} launches {r['launches']}, "
+                             f"want {want}")
+    return rows
+
+
+def policy_rows(cfg, trainer, batch, card: str) -> list[dict]:
+    """The rows of :func:`policy_table`, measured on ``trainer``'s state."""
+    from aki_torch.models.common import BF16
+    from aki_torch.train.step import make_train_step
+
+    steps = {policy: make_train_step(cfg, policy=BF16, remat=True,
+                                     remat_policy="full" if policy == "host_offload" else policy,
+                                     device="cuda", host_offload=policy == "host_offload")
+             for policy in REMAT_TABLE}
+    rows = {policy: dict(policy=policy, ms_rounds=[]) for policy in REMAT_TABLE}
+    for policy, step in steps.items():
+        step(trainer.state, batch)                  # warm: cuBLAS
+    for rnd in range(POLICY_ROUNDS):
+        for policy, step in steps.items():
+            r = rows[policy]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            m = step(trainer.state, batch)
+            end.record()
+            end.synchronize()
+            r["ms_rounds"].append(start.elapsed_time(end))
+            if rnd == 0:
+                r.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                         peak_bytes=torch.cuda.max_memory_allocated(), launches=launch_counts())
+    for policy, step in steps.items():
+        r = rows[policy]
+        r["ms"] = statistics.median(r["ms_rounds"])
+        # the device's share: the policies trade device work (recomputed
+        # products, host copies) against host work
+        r["profile"] = profile_call(f"policy_{policy}", lambda: step(trainer.state, batch))
+        log(f"phase 15 policy {policy}: loss={r['loss']!r} grad_norm={r['grad_norm']!r} "
+            f"step_ms={r['ms']:.1f} (rounds {[round(x, 1) for x in r['ms_rounds']]}) "
+            f"peak_gb={r['peak_bytes'] / 1e9:.3f} launches={r['launches']} ({card})")
+    return list(rows.values())
+
+
+def training_clis(card: str) -> dict:
+    """Phase 15: the training CLIs at full aki_4b() width and depth in bf16
+    (the hash tokenizer's layout, as the shipped YAMLs' tokenizer_path:
+    null gives), on synthetic data under build/phase15: the pretrain CLI on
+    its shipped pretrain.yaml over the paired and the interleaved dataset
+    together, the SFT CLI on the shipped training_config over two datasets,
+    and the recompute policies on one pretrain step."""
+    import shutil
+
+    import numpy as np
+    import yaml
+
+    from aki_torch.data import native_tar, synthetic
+    from aki_torch.models.configs import aki_4b, config_for_tokenizer
+    from aki_torch.data.tokenizer import HashTokenizer
+    from aki_torch.train import pretrain, sft
+
+    cfg = config_for_tokenizer(aki_4b(), HashTokenizer().info)
+    base = os.path.join(ROOT, "build", "phase15")
+    shutil.rmtree(base, ignore_errors=True)
+    data = os.path.join(base, "data")
+    rng = np.random.RandomState(15)
+    t0 = time.perf_counter()
+    # 4 paired shards of 12 JPEGs of random pixels in sizes other than 384;
+    # 4 MMC4 shards of 8 samples of 2-8 images, a random number matched
+    for sub in ("blip3-kale", "mmc4"):
+        os.makedirs(os.path.join(data, sub))
+    for i in range(4):
+        synthetic.write_caption_shard(
+            os.path.join(data, "blip3-kale", f"shard-{i:05d}.tar"), 12, rng,
+            sizes=((320, 240), (500, 375), (640, 480), (256, 320)), words=(30, 140),
+            prefix=f"k{i}_")
+    matched = []
+    for i in range(4):
+        matched += synthetic.write_mmc4_shard(
+            os.path.join(data, "mmc4", f"shard-{i:05d}.tar"), 8, rng, images=(2, 8),
+            size=(224, 168), words=(15, 40))
+    sft_names = ["llava150k", "vqa"]
+    synthetic.write_sft_datasets(data, rng, n=11, size=(480, 360), names=sft_names,
+                                 words=(40, 200))
+    log(f"phase 15 data: {time.perf_counter() - t0:.1f} s; shard reader "
+        f"{native_tar.reader()}; mmc4 images matched per sample {matched} "
+        f"(at most 6 kept: {sum(k < 6 for k in matched)} of {len(matched)} samples park blocks)")
+    out = {"reader": native_tar.reader(), "mmc4_matched": matched}
+
+    # 1. pretrain: the shipped YAML, its blip3_kale block and its mmc4
+    # block enabled as written
+    shipped = os.path.join(ROOT, "aki_torch", "configs")
+    os.environ.pop("AKI_REMAT_POLICY", None)
+    argv = ["--config", os.path.join(shipped, "pretrain.yaml"), "--device", "cuda",
+            f"root={data}", f"training.run_dir={os.path.join(base, 'pretrain_run')}",
+            f"training.total_steps={CLI_STEPS}", "training.num_epochs=1",
+            "training.warmup_steps=1", "training.checkpoint_steps=1000",
+            "training.log_every=1", "training.tensorboard=false",
+            "datasets.blip3_kale.shards=${root}/blip3-kale/shard-{00000..00003}.tar",
+            "datasets.mmc4.type=interleaved",
+            "datasets.mmc4.shards=${root}/mmc4/shard-{00000..00003}.tar",
+            "datasets.mmc4.batch_size=4", "datasets.mmc4.max_text_len=256",
+            "datasets.mmc4.mmc4_textsim_threshold=0.24", "datasets.mmc4.max_num_images=6"]
+    zero_launch_counts()
+    out["pretrain"], batch = run_cli("pretrain", pretrain, argv, cfg, 2, card)
+    free_cuda()
+
+    # 2. SFT: the shipped training_config over two of the shipped datasets
+    cfg_dir = os.path.join(base, "sft_config")
+    os.makedirs(os.path.join(cfg_dir, "sft_datasets"))
+    for n in sft_names:
+        shutil.copy(os.path.join(shipped, "sft_datasets", f"{n}.yaml"),
+                    os.path.join(cfg_dir, "sft_datasets"))
+    with open(os.path.join(shipped, "sft.yaml")) as f:
+        sft_yaml = yaml.safe_load(f)
+    sft_yaml.update(defaults=[{"sft_datasets": n} for n in sft_names] + ["_self_"], root=data)
+    with open(os.path.join(cfg_dir, "sft.yaml"), "w") as f:
+        yaml.safe_dump(sft_yaml, f)
+    argv = ["--config", os.path.join(cfg_dir, "sft.yaml"), "--device", "cuda",
+            f"training_config.run_dir={os.path.join(base, 'sft_run')}",
+            f"training_config.total_training_steps={CLI_STEPS}",
+            "training_config.log_every=1", "training_config.tensorboard=false"]
+    out["sft"], _ = run_cli("sft", sft, argv, cfg, 1, card)
+    free_cuda()
+
+    # 3. the recompute policies on the pretrain CLI's first batch
+    out["policies"] = policy_table(cfg, batch, card)
+    del batch
+    free_cuda()
+    shutil.rmtree(base, ignore_errors=True)
+    out["launches"] = {k: sum(st["launches"][k] for c in ("pretrain", "sft")
+                              for st in out[c]["steps"]) for k in ("fwd", "dq", "dkv")}
+    return out
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2693,6 +3097,19 @@ def main() -> int:
         kernel_case("exp2_flush_spread_d96", 2, 389, 389, 4, 4, 96, gen, rects=EDGE_RECTS_2,
                     spread=True),
     ]
+    # the pretrain CLI's interleaved rows: 1,114 tokens (the multi-tile
+    # route), six rectangles a row, open, empty and parked
+    from aki_torch.ops.masks import MMASpec
+
+    inter_batch = interleaved_rows(cfg, torch.Generator().manual_seed(8))
+    t_inter, ispec, ivalid = interleaved_spec(cfg, inter_batch)
+    ispec = MMASpec(*(x.cuda() for x in (ispec.img_start, ispec.txt_start, ispec.txt_end)))
+    ivalid = ivalid.cuda()
+    log(f"interleaved batch: text={INTER_TEXT} spliced={t_inter} "
+        f"spec={[x.tolist() for x in (ispec.img_start, ispec.txt_start, ispec.txt_end)]} "
+        f"valid_keys={ivalid.sum(1).tolist()}")
+    cases.append(kernel_case("interleaved", 4, t_inter, t_inter, ph.num_heads, ph.num_kv_heads,
+                             ph.head_dim, gen, spec=ispec, kv_valid=ivalid, timed=True))
 
     # 4. full-width generation
     t0 = time.perf_counter()
@@ -2774,7 +3191,6 @@ def main() -> int:
     for r in requests:
         r.clear()
     free_cuda()
-    from aki_torch.ops.masks import MMASpec
 
     batch_gen = torch.Generator().manual_seed(6)
     batches = [train_rows(cfg, batch_gen) for _ in range(2)]
@@ -2790,6 +3206,8 @@ def main() -> int:
                              sg.num_heads, sg.head_dim, gen, causal=False))
     bwd = [backward_case("training", 2, t_full, t_full, ph.num_heads, ph.num_kv_heads,
                          ph.head_dim, gen, spec=tspec, kv_valid=tvalid.cuda(), timed=True),
+           backward_case("interleaved", 4, t_inter, t_inter, ph.num_heads, ph.num_kv_heads,
+                         ph.head_dim, gen, spec=ispec, kv_valid=ivalid, timed=True),
            backward_case("siglip", 1, sg.num_patches, sg.num_patches, sg.num_heads,
                          sg.num_heads, sg.head_dim, gen, causal=False),
            backward_case("two_image_union", 1, 300, 320, 4, 4, 96, gen,
@@ -2830,6 +3248,8 @@ def main() -> int:
     free_cuda()
     grads = whole_model_grads(cfg, batches[0])
     free_cuda()
+    grads_inter = whole_model_grads(cfg, inter_batch, "interleaved")
+    free_cuda()
     train = train_full_width(cfg, batches, t_full)
     free_cuda()
 
@@ -2859,9 +3279,13 @@ def main() -> int:
     consumers = loading_and_consumers()
     free_cuda()
 
+    # 15. the training CLIs at full width
+    clis = training_clis(card)
+    free_cuda()
+
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
-    tb = bwd[0]
+    tb, ti = bwd[0], bwd[1]
     per_step = train["steps"][0]["launches"]
     train_launches = {k: sum(st["launches"][k] for st in train["steps"]) for k in per_step}
     bwd_note = ("ms and cold_ms: this kernel's device time per call, torch.profiler over "
@@ -2876,9 +3300,11 @@ def main() -> int:
         "replaces": "aki_tpu/ops/flash_mma.py:175 (_kernel_1kv) and "
                     "aki_tpu/ops/flash_mma.py:79 (_kernel); its lse output carries "
                     "aki_tpu/ops/flash_mma_bwd.py:68 (_lse_kernel)",
-        "launches": launches + train_launches["fwd"] + consumers["launches"],
+        "launches": (launches + train_launches["fwd"] + consumers["launches"]
+                     + clis["launches"]["fwd"]),
         "launches_by_path": {"generate": launches, "train": train_launches["fwd"],
-                             "consumers": consumers["launches"]},
+                             "consumers": consumers["launches"],
+                             "training_clis": clis["launches"]["fwd"]},
         "max_abs_err": max([c["max_abs_err"] for c in cases + k1_b48]
                            + [c["fwd_max_abs_err"] for c in bwd]),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2900,7 +3326,9 @@ def main() -> int:
         "source": "aki_torch/csrc/flash_mma_bwd.cu",
         "replaces": ("aki_tpu/ops/flash_mma_bwd.py:111 (_dq_kernel)" if kn == "dq"
                      else "aki_tpu/ops/flash_mma_bwd.py:157 (_dkv_kernel)"),
-        "launches": train_launches[kn],
+        "launches": train_launches[kn] + clis["launches"][kn],
+        "launches_by_path": {"train": train_launches[kn],
+                             "training_clis": clis["launches"][kn]},
         "max_abs_err": max(c[g]["max_abs_err"] for c in bwd
                            for g in (("dq",) if kn == "dq" else ("dk", "dv"))),
         "ms": tb[f"{kn}_ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb[f"{kn}_bound_ms"],
@@ -2913,9 +3341,16 @@ def main() -> int:
         "backward_burst_ms": tb["burst_ms"], "backward_cold_device_ms": tb["cold_device_ms"],
         "backward_bound_ms": tb["bound_ms"],
         "tile_coverage": bwd_coverage[kn],
+        "interleaved": {"shape": "interleaved " + "x".join(map(str, ti["shape"])),
+                        "ms": ti[f"{kn}_ms"], "cold_ms": ti[f"cold_{kn}_ms"],
+                        "bound_ms": ti[f"{kn}_bound_ms"], "bound_by": ti[f"{kn}_bound_by"],
+                        "backward_device_ms": ti["device_ms"],
+                        "backward_bound_ms": ti["bound_ms"],
+                        **{k: ti[k] for k in ("plain_ms", "library_ms", "library_device_ms")}},
         "note": bwd_note,
     } for kn in ("dq", "dkv")],
-        "backward_cases": bwd, "whole_model": grads,
+        "backward_cases": bwd, "whole_model": grads, "whole_model_interleaved": grads_inter,
+        "training_clis": clis,
         "train": {k: train[k] for k in ("steps", "peak_bytes", "tokens_per_step")}}
     int8_runs = [r["launches"] for r in int8_gen["requests"]] + [serve["launches"]]
     k4 = dec_cases[0]

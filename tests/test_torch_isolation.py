@@ -22,6 +22,12 @@ CONSUMER_MODULES = (
     "aki_torch.convert", "aki_torch.convert.cli", "aki_torch.models.modeling",
     "aki_torch.infer.eval_cv_bench", "aki_torch.infer.eval_yorn", "aki_torch.infer.predict",
     "aki_torch.infer.vlmevalkit", "aki_torch.infer.demo", "aki_torch.infer.beam")
+TRAINING_MODULES = (
+    "aki_torch.configs.loader", "aki_torch.data.tar_reader", "aki_torch.data.native_tar",
+    "aki_torch.data.loader", "aki_torch.data.pretrain", "aki_torch.data.interleaved",
+    "aki_torch.data.synthetic", "aki_torch.data.sft.parsers", "aki_torch.data.sft.templatizer",
+    "aki_torch.data.sft.pipeline", "aki_torch.train.cli", "aki_torch.train.pretrain",
+    "aki_torch.train.sft")
 
 
 def test_port_imports_neither_jax_nor_aki_tpu():
@@ -29,7 +35,7 @@ def test_port_imports_neither_jax_nor_aki_tpu():
     assert {"aki_torch.ops.flash_mma", "aki_torch.infer.engine", "aki_torch.infer.server",
             "aki_torch.models.quant", "aki_torch.ops.fused_quant",
             "aki_torch.ops.decode_attention", "aki_torch.ops.flash_mma_q8",
-            *CONSUMER_MODULES} <= set(modules)
+            *CONSUMER_MODULES, *TRAINING_MODULES} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -52,6 +58,22 @@ def test_consumers_import_without_pillow_safetensors_or_transformers():
         "    sys.modules[name] = None\n"
         f"for m in {CONSUMER_MODULES!r}: importlib.import_module(m)\n"
         "from aki_torch.convert import from_jax_params\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_training_modules_import_without_yaml_pillow_or_scipy():
+    """The config loader and the data layer import PyYAML, Pillow and SciPy
+    only where they parse, decode or match."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('yaml', 'PIL', 'scipy'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {TRAINING_MODULES!r}: importlib.import_module(m)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
