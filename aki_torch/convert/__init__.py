@@ -6,7 +6,10 @@ numpy arrays — stacked ``(L, ...)`` layers, ``(in, out)`` kernels — and
 returns reference-named tensors: layers split, kernels transposed to
 ``(out, in)``, q/k/v and gate/up fused, the patch-embed matmul folded back
 into its convolution shape. Unlike the JAX export it carries the SigLIP
-tower (``vision_encoder.*``).
+tower (``vision_encoder.*``). A MoE decoder's layers (``phi3/layers/moe``)
+become ``mlp.router.weight`` and the stacked experts ``mlp.w_gate``,
+``mlp.w_up``, ``mlp.w_down``. :func:`from_jax_xattn` converts the Flamingo
+decoder's gated cross-attention blocks.
 """
 
 from __future__ import annotations
@@ -33,6 +36,14 @@ def _ln(sd: dict, name: str, p: dict, i=None) -> None:
         sd[name + ".bias"] = _t(pick(p["bias"]))
 
 
+def _moe(sd: dict, pre: str, moe: dict, i: int) -> None:
+    """Layer ``i`` of a MoE tree (``router/w`` (L, D, E), the experts
+    (L, E, in, out)): the router transposed, the experts as they are."""
+    sd[pre + "router.weight"] = _lin(moe["router"]["w"][i])
+    for w in ("w_gate", "w_up", "w_down"):
+        sd[pre + w] = _t(moe[w][i])
+
+
 def _phi3(sd: dict, params: dict, cfg: AKIConfig) -> None:
     ph = params["phi3"]
     lay = ph["layers"]
@@ -46,6 +57,9 @@ def _phi3(sd: dict, params: dict, cfg: AKIConfig) -> None:
             [_lin(lay[w][i]) for w in ("wq", "wk", "wv")], dim=0)
         sd[p + "self_attn.o_proj.weight"] = _lin(lay["wo"][i])
         _ln(sd, p + "post_attention_layernorm", lay["ln2"], i)
+        if "moe" in lay:
+            _moe(sd, p + "mlp.", lay["moe"], i)
+            continue
         sd[p + "mlp.gate_up_proj.weight"] = torch.cat(
             [_lin(lay[w][i]) for w in ("w_gate", "w_up")], dim=0)
         sd[p + "mlp.down_proj.weight"] = _lin(lay["w_down"][i])
@@ -111,4 +125,23 @@ def from_jax_params(params: dict, cfg: AKIConfig) -> dict[str, torch.Tensor]:
     _siglip(sd, params, cfg)
     _perceiver(sd, params, cfg)
     _phi3(sd, params, cfg)
+    return sd
+
+
+def from_jax_xattn(xattn: dict) -> dict[str, torch.Tensor]:
+    """The JAX Flamingo tree ``xattn`` (``init_gated_xattn``: stacked
+    ``(G, ...)`` leaves, ``(in, out)`` kernels) as the ``state_dict`` of an
+    ``nn.ModuleList`` of :class:`~aki_torch.models.flamingo.GatedCrossAttentionBlock`,
+    OpenFlamingo's names."""
+    sd: dict[str, torch.Tensor] = {}
+    for g in range(np.asarray(xattn["to_q"]).shape[0]):
+        p = f"{g}."
+        _ln(sd, p + "attn.norm", xattn["norm"], g)
+        for w in ("to_q", "to_kv", "to_out"):
+            sd[p + f"attn.{w}.weight"] = _lin(xattn[w][g])
+        sd[p + "attn_gate"] = _t(xattn["attn_gate"][g])
+        _ln(sd, p + "ff.0", xattn["ff_ln"], g)
+        sd[p + "ff.1.weight"] = _lin(xattn["ff1"][g])
+        sd[p + "ff.3.weight"] = _lin(xattn["ff2"][g])
+        sd[p + "ff_gate"] = _t(xattn["ff_gate"][g])
     return sd

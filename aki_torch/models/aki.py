@@ -20,6 +20,7 @@ from .configs import AKIConfig
 from .embeddings import (DecoupledEmbedding, DecoupledLinear, decoupled_logits,
                          decoupled_lookup)
 from .fusion import SplicedBatch, splice_vision_tokens, splice_vision_tokens_multi
+from .moe import MoEMLP
 from .perceiver import PerceiverResampler
 from .phi3 import Phi3Model
 from .siglip import SigLIPVisionTransformer
@@ -67,8 +68,11 @@ class AKIModel(nn.Module):
                     lm.lm_head.weight, lm.lm_head.additional_fc.weight)
         init_const(0.0, lm.lm_head.bias, lm.lm_head.additional_fc.bias)
         for layer in lm.model.layers:
-            init_normal(gen, std, *(m.weight for m in (*layer.self_attn.values(),
-                                                       *layer.mlp.values())))
+            init_normal(gen, std, *(m.weight for m in layer.self_attn.values()))
+            if isinstance(layer.mlp, MoEMLP):
+                layer.mlp.reset_parameters(gen, std)
+            else:
+                init_normal(gen, std, *(m.weight for m in layer.mlp.values()))
             init_norm(layer.input_layernorm, layer.post_attention_layernorm)
         init_norm(lm.model.norm)
 
@@ -82,6 +86,7 @@ class AKIOutput:
     logits: torch.Tensor          # (B, T_full, output_vocab) over the spliced sequence
     loss: torch.Tensor | None     # mean shifted CE over non-ignored labels
     spliced: SplicedBatch
+    aux: torch.Tensor | None = None   # the MoE decoder's Switch aux loss (f32)
 
 
 def encode_vision(model: AKIModel, images: torch.Tensor, policy: Policy = BF16,
@@ -157,6 +162,8 @@ def aki_forward(
     ``"image_first"`` (MMA) or ``"text_first"`` (DOT ablation); remat
     recomputes each Perceiver block and decoder layer in the backward
     (``remat_policy`` as in :data:`~aki_torch.models.common.REMAT_POLICIES`).
+    A MoE decoder (``cfg.phi3.moe``) returns its Switch aux loss in ``aux``,
+    for the trainer to weigh in.
     """
     device = resolve_device(device)
     to = lambda x: None if x is None else torch.as_tensor(x, device=device)  # noqa: E731
@@ -174,10 +181,11 @@ def aki_forward(
         sp = splice_vision_tokens(text_embeds, vision_tokens, input_ids, attn_valid,
                                   cfg.media_token_id, cfg.assistant_token_id, labels=labels,
                                   order=order)
-    hidden, _ = model.lang_model.model(sp.embeds, sp.positions, spec=sp.spec,
-                                       kv_valid=sp.attn_valid, policy=policy,
-                                       use_flash=use_flash, remat=remat,
-                                       remat_policy=remat_policy)
+    moe = cfg.phi3.moe is not None
+    hidden, _, *aux = model.lang_model.model(sp.embeds, sp.positions, spec=sp.spec,
+                                             kv_valid=sp.attn_valid, policy=policy,
+                                             use_flash=use_flash, remat=remat,
+                                             remat_policy=remat_policy, with_aux=moe)
     logits = lm_logits(model, hidden, policy)
     loss = next_token_loss(logits, sp.labels) if labels is not None else None
-    return AKIOutput(logits=logits, loss=loss, spliced=sp)
+    return AKIOutput(logits=logits, loss=loss, spliced=sp, aux=aux[0] if moe else None)

@@ -166,16 +166,20 @@ def empty(module_cls, *args, device, dtype, **kw) -> nn.Module:
     return nn.utils.skip_init(module_cls, *args, device=device, dtype=dtype, **kw)
 
 
-def linear(lin: nn.Linear, x: torch.Tensor, policy: Policy) -> torch.Tensor:
-    """``lin`` applied to ``x`` in the compute dtype; in a recomputed region
-    of a selective policy, under the region's dispatch mode."""
-    bias = None if lin.bias is None else policy.cast(lin.bias)
-    weight = policy.cast(lin.weight)
+def product(fn, *args) -> torch.Tensor:
+    """``fn(*args)``, a matrix product without batch dims; in a recomputed
+    region of a selective policy, under the region's dispatch mode."""
     mode = getattr(_REGION, "mode", None)
     if mode is None:
-        return F.linear(x, weight, bias)
+        return fn(*args)
     with mode:
-        return F.linear(x, weight, bias)
+        return fn(*args)
+
+
+def linear(lin: nn.Linear, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+    """``lin`` applied to ``x`` in the compute dtype, through :func:`product`."""
+    bias = None if lin.bias is None else policy.cast(lin.bias)
+    return product(F.linear, x, policy.cast(lin.weight), bias)
 
 
 def init_normal(gen: torch.Generator, std: float, *tensors) -> None:

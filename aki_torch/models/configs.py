@@ -38,8 +38,8 @@ class RopeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-Experts MLP option (carried for config parity; the MoE
-    decoder itself is not ported yet)."""
+    """Mixture-of-Experts MLP of the decoder (``Phi3Config.moe``; the
+    routed mixture is :mod:`aki_torch.models.moe`)."""
 
     num_experts: int = 8
     top_k: int = 2

@@ -2,9 +2,12 @@
 ``aki_tpu/models/phi3.py:phi3_forward``).
 
 RMSNorm, fused QKV, neox RoPE with LongRoPE factors, SiLU-gated MLP with a
-fused gate/up projection. The forward consumes already-spliced embeddings;
-the decoupled embedding and head sit beside it in ``lang_model``. Parameter
-names follow the reference checkpoint's ``lang_model.*``.
+fused gate/up projection, or with ``Phi3Config.moe`` the routed mixture of
+:mod:`aki_torch.models.moe`, whose Switch aux loss the forward sums over
+the layers (``with_aux``; the cached paths drop it, as JAX does). The
+forward consumes already-spliced embeddings; the decoupled embedding and
+head sit beside it in ``lang_model``. Parameter names follow the reference
+checkpoint's ``lang_model.*``.
 
 With a :class:`KVCache`, a prompt of T > 1 tokens is written at slots
 ``[0, T)`` and attends over the whole cache layer (``max_len`` keys under
@@ -37,6 +40,7 @@ from ..ops.masks import MMASpec
 from ..ops.rope import apply_rope, rope_cos_sin
 from .common import BF16, Policy, empty, remat_call, rmsnorm
 from .configs import Phi3Config
+from .moe import MoEMLP, moe_mlp
 from .quant import is_quantized, norm_quant_acts, project, silu_mul_quant_acts
 
 
@@ -142,13 +146,19 @@ class Phi3DecoderLayer(nn.Module):
             "o_proj": empty(nn.Linear, nh * dh, d, bias=False, **kw),
         })
         self.post_attention_layernorm = empty(nn.RMSNorm, d, **kw)
-        self.mlp = nn.ModuleDict({
-            "gate_up_proj": empty(nn.Linear, d, 2 * cfg.intermediate_size, bias=False, **kw),
-            "down_proj": empty(nn.Linear, cfg.intermediate_size, d, bias=False, **kw),
-        })
+        if cfg.moe is not None:
+            self.mlp = MoEMLP(d, cfg.moe, **kw)
+        else:
+            self.mlp = nn.ModuleDict({
+                "gate_up_proj": empty(nn.Linear, d, 2 * cfg.intermediate_size, bias=False,
+                                      **kw),
+                "down_proj": empty(nn.Linear, cfg.intermediate_size, d, bias=False, **kw),
+            })
 
     def forward(self, x, cos, sin, cfg: Phi3Config, spec, kv_valid, q_offset,
                 step: _CacheStep | None, li: int, policy: Policy, use_flash: bool):
+        """Returns (the layer's output, the MoE aux loss or None for a dense
+        MLP)."""
         b, t, _ = x.shape
         nh, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         eps = cfg.rms_norm_eps
@@ -206,11 +216,25 @@ class Phi3DecoderLayer(nn.Module):
                           q_offset=q_offset)
         x = x + project(att["o_proj"], attn.reshape(b, t, nh * dh), policy)
 
+        if isinstance(mlp, MoEMLP):
+            h2 = rmsnorm(policy.cast(self.post_attention_layernorm.weight), x, eps)
+            out, aux = moe_mlp(mlp, h2, cfg.moe)
+            return x + out, aux
         h2 = norm_quant_acts("rms", policy.cast(self.post_attention_layernorm.weight), None,
                              x, eps, probe=mlp["gate_up_proj"])
         gate, up = project(mlp["gate_up_proj"], h2, policy).chunk(2, dim=-1)
         act = silu_mul_quant_acts(gate, up, probe=mlp["down_proj"])
-        return x + project(mlp["down_proj"], act, policy)
+        return x + project(mlp["down_proj"], act, policy), None
+
+
+def fused_parts(cfg: Phi3Config) -> dict[int, int]:
+    """The ``parts`` of a decoder layer's recomputed region
+    (:func:`~aki_torch.models.common.remat_call`): the fused qkv and gate/up
+    products stand for JAX's q, k, v and gate, up (dots_nowide's width
+    rule)."""
+    return {(cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim:
+            max(cfg.num_heads, cfg.num_kv_heads) * cfg.head_dim,
+            2 * cfg.intermediate_size: cfg.intermediate_size}
 
 
 class Phi3Model(nn.Module):
@@ -240,7 +264,8 @@ class Phi3Model(nn.Module):
         remat_policy: str = "full",
         live_width: int | None = None,
         cache_slots=None,
-    ) -> tuple[torch.Tensor, KVCache | KVCacheQ | None]:
+        with_aux: bool = False,
+    ) -> tuple:
         """Run the stack over ``inputs_embeds`` (B, T, D).
 
         positions: (B, T) absolute RoPE positions. spec: MMA block spec
@@ -253,8 +278,13 @@ class Phi3Model(nn.Module):
         cache row of each prompt row for a prefill into a wider serving
         cache (a slot of the cache's width drops the row; read on the host).
 
-        Returns (final-normed hidden states (B, T, D), the cache).
+        Returns (final-normed hidden states (B, T, D), the cache), and with
+        ``with_aux`` (no cache) the f32 sum of the layers' MoE aux losses
+        after them (0 for a dense decoder).
         """
+        if with_aux and cache is not None:
+            raise ValueError("with_aux is only tracked on the no-cache (training) path; "
+                             "cached decode discards the per-layer MoE aux terms")
         cfg = self.cfg
         x = inputs_embeds.to(policy.compute_dtype)
         cos, sin = rope_cos_sin(cfg.rope, positions)
@@ -270,12 +300,13 @@ class Phi3Model(nn.Module):
                            .to(torch.int32) + 1).contiguous()
             step = _CacheStep(cache, wpos, rows, lengths, live_width)
         remat = remat and cache is None
-        # the fused qkv and gate/up products stand for JAX's q, k, v and
-        # gate, up (dots_nowide's width rule)
-        parts = {(cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim:
-                 max(cfg.num_heads, cfg.num_kv_heads) * cfg.head_dim,
-                 2 * cfg.intermediate_size: cfg.intermediate_size}
+        parts = fused_parts(cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) if with_aux else None
         for li, layer in enumerate(self.layers):
-            x = remat_call(remat, remat_policy, layer, x, cos, sin, cfg, spec, kv_valid,
-                           q_offset, step, li, policy, use_flash, parts=parts)
-        return rmsnorm(policy.cast(self.norm.weight), x, cfg.rms_norm_eps), cache
+            x, layer_aux = remat_call(remat, remat_policy, layer, x, cos, sin, cfg, spec,
+                                      kv_valid, q_offset, step, li, policy, use_flash,
+                                      parts=parts)
+            if with_aux and layer_aux is not None:
+                aux = aux + layer_aux
+        x = rmsnorm(policy.cast(self.norm.weight), x, cfg.rms_norm_eps)
+        return (x, cache, aux) if with_aux else (x, cache)

@@ -204,10 +204,17 @@ def quantize_params(model: nn.Module, mode: str = "w8", fuse: bool = False,
       kernel can run; gelu(0) = 0 against zero weights changes no number.
 
     The embeddings, the norms, the patch embedding and the Perceiver stay
-    float. ``mode`` is "w8" or "w8a8" (the int4 modes are not ported).
+    float. ``mode`` is "w8" or "w8a8" (the int4 modes are not ported). A
+    MoE decoder raises ``NotImplementedError``, as the JAX function fails
+    on one.
     """
     if mode not in MODES:
         raise ValueError(f"quantize mode {mode!r} is not one of {MODES}")
+    if model.cfg.phi3.moe is not None:
+        # the JAX function indexes the dense MLP's w_gate, which a MoE tree
+        # lacks: int8 serving has no MoE decoder in either package
+        raise NotImplementedError("quantize_params: the MoE decoder (Phi3Config.moe) has "
+                                  "no int8 serving path; only the dense MLP is quantized")
     a8 = mode == "w8a8"
     lm = model.lang_model
     for layer in lm.model.layers:

@@ -6,10 +6,10 @@ The JAX CLIs' YAML keys are read the same way. Keys that need a part of the
 JAX package not ported yet raise ``NotImplementedError`` naming it (ROADMAP
 Queue 1 item 10) rather than being ignored: a mesh of more than one device,
 ``fsdp_strategy`` other than ``full``, ``host_offload_params`` and
-``pp_microbatches``. Two keys are not read: ``moe_aux_weight`` weighs the
-MoE decoder's balance loss, and the CLIs build the dense model (ROADMAP
-Queue 1 item 9); ``accum_unroll`` unrolls the JAX step's compiled
-accumulation scan, and the loop here is eager (ROADMAP Queue 3).
+``pp_microbatches``. ``moe_aux_weight`` is read into the runner, as in
+JAX, though the CLIs build the dense model, as JAX's do. One key is not
+read: ``accum_unroll`` unrolls the JAX step's compiled accumulation scan,
+and the loop here is eager (ROADMAP Queue 3).
 ``host_offload`` is read: the ``full`` recompute policy (``train/step.py``).
 """
 

@@ -1,9 +1,10 @@
 """Training runner: model and optimizer build, epoch loop, resume
 (counterpart of ``aki_tpu/train/runner.py``, single device).
 
-``RunnerConfig`` has the JAX runner's single-device fields only; the mesh,
-ZeRO-2, parameter host offload, pipeline and MoE fields are not ported, so a
-config that needs them cannot be built (the CLIs refuse such YAML).
+``RunnerConfig`` has the JAX runner's single-device fields only (the MoE
+decoder's aux weight among them); the mesh, ZeRO-2, parameter host offload
+and pipeline fields are not ported, so a config that needs them cannot be
+built (the CLIs refuse such YAML).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ class RunnerConfig:
     log_every: int = 10
     host_offload: bool = False         # the "full" remat policy (train/step.py)
     frozen_bf16: bool = False          # store the frozen tower in bf16
+    moe_aux_weight: float = 0.01       # Switch aux-loss weight (MoE decoder)
 
 
 class Trainer:
@@ -96,7 +98,7 @@ class Trainer:
         self.step_fn = make_train_step(
             model_cfg, policy=self.policy, remat=run_cfg.remat, grad_accum=run_cfg.grad_accum,
             order=run_cfg.order, remat_policy=run_cfg.remat_policy, device=self.device,
-            host_offload=run_cfg.host_offload)
+            host_offload=run_cfg.host_offload, moe_aux_weight=run_cfg.moe_aux_weight)
         self.metrics = metrics if metrics is not None else MetricsLogger(run_cfg.run_dir)
 
     @property

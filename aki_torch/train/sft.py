@@ -50,6 +50,7 @@ def runner_config(tc) -> RunnerConfig:
         log_every=tc.get("log_every", 10),
         host_offload=tc.get("host_offload", False),
         frozen_bf16=tc.get("frozen_bf16", False),
+        moe_aux_weight=tc.get("moe_aux_weight", 0.01),
     )
 
 

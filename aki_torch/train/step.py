@@ -13,9 +13,10 @@
   ``requires_grad=False`` and never get a ``.grad``;
 - a tuple of batches is one step over several datasets: their (weighted)
   gradients sum, the logged loss is their mean;
-- the loss is multiplied by ``loss_weight`` (per dataset) and by
-  ``loss_scale`` (the gradients keep that scale, as in the JAX step; the
-  logged loss does not);
+- the loss is multiplied by ``loss_weight`` (per dataset: the CE loss only)
+  and by ``loss_scale`` (the gradients keep that scale, as in the JAX step;
+  the logged loss does not); a MoE decoder's Switch aux loss is added after
+  the weight, times ``moe_aux_weight``;
 - the metrics are ``loss`` and ``grad_norm``, the norm taken before the clip.
 
 The port updates the model and the optimizer in place instead of returning
@@ -61,7 +62,7 @@ class Batch:
 
 def make_loss_fn(cfg: AKIConfig, policy: Policy, remat: bool, use_flash: bool,
                  order: str = "image_first", remat_policy: str = "full",
-                 device="cuda", host_offload: bool = False
+                 device="cuda", host_offload: bool = False, moe_aux_weight: float = 0.01
                  ) -> Callable[[AKIModel, Batch], torch.Tensor]:
     if host_offload:
         remat, remat_policy = True, "full"
@@ -71,9 +72,14 @@ def make_loss_fn(cfg: AKIConfig, policy: Policy, remat: bool, use_flash: bool,
                           labels=batch.labels, policy=policy, use_flash=use_flash,
                           order=order, device=device, remat=remat,
                           remat_policy=remat_policy)
+        loss = out.loss
         if batch.loss_weight is not None:
-            return out.loss * batch.loss_weight
-        return out.loss
+            # the per-dataset multiplier scales the CE loss only: the
+            # router's balance pressure does not vary by dataset
+            loss = loss * batch.loss_weight
+        if out.aux is not None:
+            loss = loss + moe_aux_weight * out.aux
+        return loss
     return loss_fn
 
 
@@ -88,13 +94,14 @@ def make_train_step(
     remat_policy: str = "full",
     device="cuda",
     host_offload: bool = False,
+    moe_aux_weight: float = 0.01,
 ) -> Callable[[TrainState, Batch | tuple[Batch, ...]], dict]:
     """Build ``train_step(state, batch) -> {"loss", "grad_norm"}`` (0-d
     tensors on the device; nothing syncs with the host). ``batch`` holds
     ``grad_accum`` stacked micro-batches when ``grad_accum > 1``; a tuple of
     such batches is one step over several datasets."""
     loss_fn = make_loss_fn(cfg, policy, remat, use_flash, order, remat_policy, device,
-                           host_offload)
+                           host_offload, moe_aux_weight)
 
     def accumulate(model, batch: Batch) -> torch.Tensor:
         """Backward of one dataset's (mean over micro-batches) loss into

@@ -138,7 +138,23 @@ Phases, each fatal on failure:
      Then pretrain steps under each recompute policy (full, dots,
      dots_nowide, and the host_offload flag) at learning rate 0: loss and
      grad_norm bitwise equal; peak memory, step ms over 3 rounds that take
-     the policies in turn, and one profiled step's device busy time of each.
+     the policies in turn, and one profiled step's device busy time of each;
+ 16. the two decoder variants. (a) MoE: aki_4b() with the JAX package's 4B
+     MoE geometry (8 experts of 8,192, top-2, capacity factor 1.25), cut to
+     MOE_LAYERS decoder layers: one MoE layer on the training micro-batch's
+     1,310 bf16 tokens by scatter and by dense dispatch, both against the
+     dense dispatch in f32 on the same weights, its dropped choices equal to
+     a count on the host from the router's top-k; whole-model gradients
+     (phase 7's gates, 35 / 4 / 4 launches); the Trainer as phase 8 runs it
+     (bf16 tower, dots, grad_accum 2, moe_aux_weight 0.01) for 3 steps with
+     70 / 8 / 8 launches a step, one profiled; then from that state one step
+     over the routers at aux weight 0 and one at 0.5 (other losses, other
+     router updates); 16 greedy tokens of request (a) (31 launches) and its
+     prefill logits (phase 5's gates). (b) Flamingo at full width and depth
+     (8 gated blocks of 8 heads x 64, ff_mult 4, before every 4th layer) on
+     2 rows of 512 text tokens with two <image> tokens each and the tokens
+     of 4 images: at init equal to the plain decoder, then with the gates
+     open phase 7's gates on the next-token loss (91 / 32 / 32 launches).
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -277,6 +293,24 @@ CLI_STEPS = 3
 REMAT_TABLE = ("full", "dots", "dots_nowide", "host_offload")
 POLICY_ROUNDS = 3
 PEAK_LIMIT_BYTES = 80e9
+# Phase 16: the MoE model's decoder depth (one layer of 8 experts of 8,192
+# at d 3,072 holds 641.7 M parameters, 10.3 GB with fp32 grads and AdamW's
+# moments), its Trainer steps, aux weight and generated tokens; the
+# Flamingo decoder's block spacing, heads, ff_mult and text tokens a row
+MOE_LAYERS, MOE_STEPS, MOE_AUX_WEIGHT, MOE_NEW = 4, 3, 0.01, 16
+FLAMINGO_EVERY_N, FLAMINGO_HEADS, FLAMINGO_DIM_HEAD, FLAMINGO_FF_MULT = 4, 8, 64, 4
+FLAMINGO_TEXT = 512
+# The MoE layer's scatter against its dense dispatch on the same bf16 rows:
+# the two route, place and multiply alike; they differ in the combine only,
+# where the scatter rounds each gated expert row to bf16 before the sum over
+# the k = 2 choices and the dense product sums them in f32 and rounds once:
+# at most three half-ulp roundings (2^-9 each) of terms no larger than the
+# output's scale, so |scatter - dense| <= 2^-6 of max|dense| (2.7x margin)
+# and the mean within 2^-8 of the mean |dense|
+MOE_SD_MAX, MOE_SD_MEAN = 2.0 ** -6, 2.0 ** -8
+# A second capacity factor for the MoE layer alone, where about half the
+# choices must drop (cap 164 of ~328 a expert on average)
+MOE_DROP_CF = 0.5
 
 
 def log(*args):
@@ -1167,67 +1201,169 @@ def zero_launch_counts() -> None:
     flash_mma_attention.launches = run_backward.dq_launches = run_backward.dkv_launches = 0
 
 
+def grad_picks(model) -> dict:
+    """The tensors whose gradients phases 7 and 16 compare: the first
+    layer's qkv, the last layer's o and MLP output products (a MoE layer's
+    w_down, and the first layer's router), the Perceiver's latents and the
+    head."""
+    from aki_torch.models.moe import MoEMLP
+
+    layers = model.lang_model.model.layers
+    last, mlp = len(layers) - 1, layers[-1].mlp
+    picks = {"layer0.qkv_proj": layers[0].self_attn["qkv_proj"].weight,
+             f"layer{last}.o_proj": layers[-1].self_attn["o_proj"].weight}
+    if isinstance(mlp, MoEMLP):
+        picks |= {f"layer{last}.w_down": mlp.w_down, "layer0.router": layers[0].mlp.router.weight}
+    else:
+        picks[f"layer{last}.down_proj"] = mlp["down_proj"].weight
+    return picks | {"perceiver.latents": model.vision_tokenizer.latents,
+                    "lm_head": model.lang_model.lm_head.weight}
+
+
+class RoutingPin:
+    """Records the expert choices of every MoE routing call
+    (``aki_torch.models.moe.route``) of one run and replays them in later
+    runs, where each call's probabilities are still the run's own (so the
+    router gets its gradient) but the chosen experts are the recorded ones.
+    The top-k is a step function of the logits: two runs that round
+    differently (the kernel and the plain attention, bf16 and f32) send
+    some tokens to other experts, and a token's gradient then moves between
+    experts by far more than the rounding. Pinned, the runs differ only
+    where the attention does. A replay counts the tokens whose own choice
+    of experts differed from the recorded one."""
+
+    def __init__(self):
+        self.log: list[torch.Tensor] = []
+        self.flips: list[int] = []
+
+    @contextlib.contextmanager
+    def run(self, mode: str):
+        """``mode`` "record" or "replay", around one run."""
+        from aki_torch.models import moe
+
+        real, calls, flips = moe.route, [0], []
+
+        def pinned(layer, xf, cfg):
+            r = real(layer, xf, cfg)
+            if mode == "record":
+                self.log.append(r.top_idx)
+                return r
+            idx = self.log[calls[0]]
+            calls[0] += 1
+            flips.append((r.top_idx.sort(-1).values != idx.sort(-1).values).any(-1).sum())
+            return moe.place(r.probs, r.probs.gather(1, idx), idx, cfg.num_experts, r.cap)
+        moe.route = pinned
+        try:
+            yield
+        finally:
+            moe.route = real
+        if mode == "replay":
+            self.flips.append(int(sum(flips)) if flips else 0)
+
+
+def grad_gates(title: str, modules, loss_of, picks: dict, want: dict,
+               pin: bool = False) -> dict:
+    """Phase 7's gates on one loss: ``loss_of(use_flash, policy)`` runs the
+    forward with the kernels and with the plain attention in bf16, then the
+    plain attention with f32 compute on the same fp32 weights as the
+    reference of both; the gradients of ``picks`` (``modules``' grads are
+    cleared before each run) and the losses must agree (LOSS_RTOL, per-tensor
+    cosine GRAD_COSINE_MIN, the kernel's 1 - cosine to the f32 run at most
+    twice the plain path's) and the kernel run must launch ``want``. With
+    ``pin`` (a MoE decoder) the plain and f32 runs replay the kernel run's
+    expert choices (RoutingPin), and the gates hold those; the same two
+    runs with their own routing are printed beside them, with the tokens
+    whose experts differed."""
+    from aki_torch.models.common import BF16, F32
+
+    plan = [("kernel", True, BF16), ("plain", False, BF16), ("f32", False, F32)]
+    if pin:
+        plan += [("plain_own_routing", False, BF16), ("f32_own_routing", False, F32)]
+    pinner = RoutingPin()
+    runs = {}
+    for name, use_flash, policy in plan:
+        mode = None if not pin or "own" in name else "record" if name == "kernel" else "replay"
+        for m in modules:
+            m.zero_grad(set_to_none=True)
+        zero_launch_counts()
+        with pinner.run(mode) if mode else contextlib.nullcontext():
+            loss = loss_of(use_flash, policy)
+            loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = dict(loss=loss.item(), launches=launch_counts(),
+                          grads={k: p.grad.detach().float().clone() for k, p in picks.items()})
+        del loss
+    for m in modules:
+        m.zero_grad(set_to_none=True)
+    kern, plain, f32 = runs["kernel"], runs["plain"], runs["f32"]
+
+    def cos(a, b):
+        # in f64: an f32 dot product over the head's 98 M entries can drift
+        # past 1
+        return {k: torch.nn.functional.cosine_similarity(
+            a["grads"][k].flatten().double(), b["grads"][k].flatten().double(), dim=0).item()
+            for k in a["grads"]}
+    cos_kp, cos_k32, cos_p32 = cos(kern, plain), cos(kern, f32), cos(plain, f32)
+    rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    own = {}
+    if pin:
+        po, fo = runs["plain_own_routing"], runs["f32_own_routing"]
+        own = dict(flipped_tokens_plain_f32=pinner.flips, tokens_routed=sum(
+            x.shape[0] for x in pinner.log), loss_plain=po["loss"], loss_f32=fo["loss"],
+            grad_cosine=cos(kern, po), grad_cosine_to_f32=cos(kern, fo),
+            plain_grad_cosine_to_f32=cos(po, fo))
+    log(f"{title}: loss kernel={kern['loss']:.6f} plain={plain['loss']:.6f} "
+        f"f32={f32['loss']:.6f} rel_diff={rel:.3g} (tol {LOSS_RTOL}); grad cosine kernel vs "
+        f"plain (min {GRAD_COSINE_MIN}) " + " ".join(f"{k}={c:.6f}" for k, c in cos_kp.items())
+        + "; to the f32 run kernel/plain " + " ".join(
+            f"{k}={cos_k32[k]:.6f}/{cos_p32[k]:.6f}" for k in cos_kp)
+        + f"; launches kernel run {kern['launches']} (want {want}), plain run "
+        f"{plain['launches']}"
+        + ("" if not pin else
+           f"; the expert choices pinned to the kernel run's (tokens whose own choice differed, "
+           f"plain / f32 run: {pinner.flips} of {own['tokens_routed']} routed); with their "
+           f"own routing: loss plain={own['loss_plain']:.6f} f32={own['loss_f32']:.6f}, grad "
+           f"cosine kernel vs plain " + " ".join(
+               f"{k}={c:.6f}" for k, c in own["grad_cosine"].items())
+           + "; to the f32 run kernel/plain " + " ".join(
+               f"{k}={own['grad_cosine_to_f32'][k]:.6f}/"
+               f"{own['plain_grad_cosine_to_f32'][k]:.6f}" for k in cos_kp)))
+    del runs, kern["grads"], plain["grads"], f32["grads"]
+    if not all(math.isfinite(r["loss"]) for r in (kern, plain, f32)):
+        raise SystemExit(f"chip_smoke: non-finite loss ({title})")
+    if rel > LOSS_RTOL or min(cos_kp.values()) < GRAD_COSINE_MIN or any(
+            1 - cos_k32[k] > 2 * (1 - cos_p32[k]) + 1e-4 for k in cos_kp):
+        raise SystemExit(f"chip_smoke: gradients with the kernels differ from plain ({title})")
+    if kern["launches"] != want or plain["launches"]["dq"] or plain["launches"]["dkv"]:
+        raise SystemExit(f"chip_smoke: the kernels were not launched as expected ({title})")
+    return dict(loss=kern["loss"], plain_loss=plain["loss"], f32_loss=f32["loss"],
+                loss_rel_diff=rel, grad_cosine=cos_kp, grad_cosine_to_f32=cos_k32,
+                plain_grad_cosine_to_f32=cos_p32, launches=kern["launches"],
+                **({"own_routing": own} if pin else {}))
+
+
 def whole_model_grads(cfg, batch, label: str = "training") -> dict:
     """Phase 7: loss and gradients of one training batch at full width and
     depth, with the kernels against the plain attention. The tower runs once
     per batch over all its images (an interleaved batch's too), so the
     launches of one step do not depend on the images a row carries."""
     from aki_torch.models.aki import AKIModel
-    from aki_torch.models.common import BF16, F32
     from aki_torch.train.step import Batch, make_loss_fn
 
     model = AKIModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
     model.vision_encoder.requires_grad_(False)
     dev_batch = Batch(*(torch.as_tensor(x).cuda() for x in (
         batch.input_ids, batch.images, batch.attn_valid, batch.labels)))
-    lm = model.lang_model
-    picks = {"layer0.qkv_proj": lm.model.layers[0].self_attn["qkv_proj"].weight,
-             "layer31.o_proj": lm.model.layers[-1].self_attn["o_proj"].weight,
-             "layer31.down_proj": lm.model.layers[-1].mlp["down_proj"].weight,
-             "perceiver.latents": model.vision_tokenizer.latents,
-             "lm_head": lm.lm_head.weight}
-    runs = {}
-    # the kernels and the plain attention in bf16, then the plain attention
-    # with f32 compute on the same fp32 weights as the reference of both
-    for name, use_flash, policy in (("kernel", True, BF16), ("plain", False, BF16),
-                                    ("f32", False, F32)):
-        model.zero_grad(set_to_none=True)
-        loss_fn = make_loss_fn(cfg, policy, remat=True, use_flash=use_flash)
-        zero_launch_counts()
-        loss = loss_fn(model, dev_batch)
-        loss.backward()
-        torch.cuda.synchronize()
-        runs[name] = dict(loss=loss.item(), launches=launch_counts(),
-                          grads={k: p.grad.detach().float().clone() for k, p in picks.items()})
-    del model, picks, loss
-    kern, plain, f32 = runs["kernel"], runs["plain"], runs["f32"]
 
-    def cos(a, b):
-        return {k: torch.nn.functional.cosine_similarity(
-            a["grads"][k].flatten(), b["grads"][k].flatten(), dim=0).item() for k in a["grads"]}
-    cos_kp, cos_k32, cos_p32 = cos(kern, plain), cos(kern, f32), cos(plain, f32)
-    rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    def loss_of(use_flash, policy):
+        return make_loss_fn(cfg, policy, remat=True, use_flash=use_flash)(model, dev_batch)
     want = {"fwd": cfg.siglip.num_layers + 2 * cfg.phi3.num_layers,
             "dq": cfg.phi3.num_layers, "dkv": cfg.phi3.num_layers}
-    log(f"whole-model grads ({label}, {tuple(batch.input_ids.shape)} text, images "
-        f"{tuple(batch.images.shape)}): loss kernel={kern['loss']:.6f} plain={plain['loss']:.6f} "
-        f"f32={f32['loss']:.6f} rel_diff={rel:.3g} (tol {LOSS_RTOL}); grad cosine kernel vs "
-        f"plain (min {GRAD_COSINE_MIN}) " + " ".join(f"{k}={c:.6f}" for k, c in cos_kp.items())
-        + "; to the f32 run kernel/plain " + " ".join(
-            f"{k}={cos_k32[k]:.6f}/{cos_p32[k]:.6f}" for k in cos_kp)
-        + f"; launches kernel run {kern['launches']} (want {want}), plain run "
-        f"{plain['launches']}")
-    del runs, kern["grads"], plain["grads"], f32["grads"]
-    if not all(math.isfinite(r["loss"]) for r in (kern, plain, f32)):
-        raise SystemExit("chip_smoke: non-finite whole-model loss")
-    if rel > LOSS_RTOL or min(cos_kp.values()) < GRAD_COSINE_MIN or any(
-            1 - cos_k32[k] > 2 * (1 - cos_p32[k]) + 1e-4 for k in cos_kp):
-        raise SystemExit("chip_smoke: whole-model gradients with the kernels differ from plain")
-    if kern["launches"] != want or plain["launches"]["dq"] or plain["launches"]["dkv"]:
-        raise SystemExit("chip_smoke: whole-model step did not launch the kernels as expected")
-    return dict(label=label, loss=kern["loss"], plain_loss=plain["loss"], f32_loss=f32["loss"],
-                loss_rel_diff=rel, grad_cosine=cos_kp, grad_cosine_to_f32=cos_k32,
-                plain_grad_cosine_to_f32=cos_p32, launches=kern["launches"])
+    rec = grad_gates(f"whole-model grads ({label}, {tuple(batch.input_ids.shape)} text, images "
+                     f"{tuple(batch.images.shape)})", [model], loss_of, grad_picks(model), want,
+                     pin=cfg.phi3.moe is not None)
+    del model
+    return dict(label=label, **rec)
 
 
 def train_full_width(cfg, batches, t_full) -> dict:
@@ -3015,6 +3151,429 @@ def training_clis(card: str) -> dict:
     return out
 
 
+def moe_config(cfg):
+    """Phase 16's MoE model: aki_4b() with the JAX package's own 4B MoE
+    geometry (tests/test_moe.py: 8 experts of 8,192, top-2, capacity factor
+    1.25), cut to MOE_LAYERS decoder layers."""
+    import dataclasses
+
+    from aki_torch.models.configs import MoEConfig
+
+    return dataclasses.replace(cfg, phi3=dataclasses.replace(
+        cfg.phi3, num_layers=MOE_LAYERS, moe=MoEConfig(num_experts=8, top_k=2,
+                                                        intermediate_size=8192,
+                                                        capacity_factor=1.25)))
+
+
+def host_drops(top_idx, top_p, e: int, cap: int) -> int:
+    """The dropped (token, choice) pairs, counted on the host: the choices
+    taken choice-major (every token's first, then every token's second),
+    each taking the next place of its expert; a place at or past ``cap``
+    (or a zero probability) drops it."""
+    seen = [0] * e
+    dropped = 0
+    for j in range(top_idx.shape[1]):
+        for n in range(top_idx.shape[0]):
+            x = int(top_idx[n, j])
+            dropped += not (seen[x] < cap and float(top_p[n, j]) > 0)
+            seen[x] += 1
+    return dropped
+
+
+def moe_dispatch_case(layer, x, mc) -> tuple[dict, bool]:
+    """One MoE layer on the bf16 rows ``x``: scatter against dense
+    dispatch, both against the dense dispatch in f32 on the same
+    (bf16-valued) weights (the same routing: the router's f32 product sees
+    the same values), and the dropped choices against a count on the host
+    from the router's top-k. Returns the record and whether every gate
+    held."""
+    from aki_torch.models.moe import capacity, moe_mlp, route
+
+    d = x.shape[-1]
+    n_tok = x.shape[0] * x.shape[1]
+    with torch.no_grad():
+        r = route(layer, x.reshape(n_tok, d), mc)
+        r32 = route(layer, x.float().reshape(n_tok, d), mc)
+        scatter, aux_s = moe_mlp(layer, x, mc, "scatter")
+        dense, aux_d = moe_mlp(layer, x, mc, "dense")
+        ref, aux_r = moe_mlp(layer, x.float(), mc, "dense")
+    torch.cuda.synchronize()
+    cap = capacity(n_tok, mc)
+    top_idx, top_p = r.top_idx.cpu().numpy(), r.top_p.cpu().numpy()
+    want_drops = host_drops(top_idx, top_p, mc.num_experts, cap)
+    drops = int((~r.keep).sum())
+    all_dropped = (~r.keep).all(dim=1).reshape(scatter.shape[:2])
+    s, dn, rf = (t.float() for t in (scatter, dense, ref))
+    sd = (s - dn).abs()
+    err_s, err_d = (s - rf).abs(), (dn - rf).abs()
+    scale = rf.abs().max().item()
+    rec = dict(capacity_factor=mc.capacity_factor, tokens=n_tok, cap=cap, dropped=drops,
+               host_dropped=want_drops, tokens_all_dropped=int(all_dropped.sum()),
+               load=torch.bincount(r.top_idx.flatten(), minlength=mc.num_experts).tolist(),
+               scatter_dense_max_abs=sd.max().item(), scatter_dense_mean_abs=sd.mean().item(),
+               max_abs=dn.abs().max().item(), mean_abs=dn.abs().mean().item(),
+               scatter_mean_err_vs_f32=err_s.mean().item(),
+               dense_mean_err_vs_f32=err_d.mean().item(),
+               scatter_max_err_vs_f32=err_s.max().item(), aux=aux_s.item(),
+               aux_dense=aux_d.item(), aux_f32=aux_r.item())
+    ok = (drops == want_drops and torch.equal(r.top_idx, r32.top_idx)
+          and bool(torch.isfinite(s).all()) and bool((s[all_dropped] == 0).all())
+          and rec["scatter_dense_max_abs"] <= MOE_SD_MAX * rec["max_abs"]
+          and rec["scatter_dense_mean_abs"] <= MOE_SD_MEAN * rec["mean_abs"]
+          and all(bool((e <= G_ATOL * scale + G_RTOL * rf.abs()).all()) for e in (err_s, err_d))
+          and rec["scatter_mean_err_vs_f32"] <= F32_ERR_RATIO * rec["dense_mean_err_vs_f32"]
+          + 1e-7 and aux_s.item() == aux_d.item() and abs(aux_s.item() - aux_r.item()) <= 1e-4)
+    log(f"moe layer (d {d}, {mc.num_experts} experts of {mc.intermediate_size}, top-"
+        f"{mc.top_k}, capacity factor {mc.capacity_factor}) on {n_tok} bf16 tokens: cap={cap} "
+        f"dropped={drops} (host {want_drops}) tokens with every choice dropped="
+        f"{rec['tokens_all_dropped']} (all zero rows) load={rec['load']}; scatter vs dense "
+        f"max_abs={rec['scatter_dense_max_abs']:.4g} mean_abs={rec['scatter_dense_mean_abs']:.4g}"
+        f" (|out| max {rec['max_abs']:.4g} mean {rec['mean_abs']:.4g}; limits {MOE_SD_MAX} and "
+        f"{MOE_SD_MEAN} of them); mean |err| to the f32 dense route scatter="
+        f"{rec['scatter_mean_err_vs_f32']:.4g} dense={rec['dense_mean_err_vs_f32']:.4g}; aux "
+        f"scatter={rec['aux']:.6f} dense={rec['aux_dense']:.6f} f32={rec['aux_f32']:.6f}")
+    return rec, ok
+
+
+def moe_layer(cfg_moe, t_rows: int) -> dict:
+    """Phase 16 (a): one MoE layer at full width on the training
+    micro-batch's 2 x ``t_rows`` bf16 tokens (moe_dispatch_case) at the
+    model's capacity factor and at MOE_DROP_CF, where choices must drop;
+    then the expert products and the whole layer timed (CUDA events)."""
+    import dataclasses
+
+    from aki_torch.models.moe import MoEMLP, moe_mlp
+
+    pc = cfg_moe.phi3
+    mc, d = pc.moe, pc.hidden_size
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    layer = MoEMLP(d, mc, device="cuda", dtype=torch.float32)
+    layer.reset_parameters(gen, pc.initializer_range)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(p.to(torch.bfloat16))       # the bf16 path's weights, exactly
+    # the layer's input: RMS-normed rows, as the decoder gives them
+    x = torch.randn(2, t_rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+    rec, ok = moe_dispatch_case(layer, x, mc)
+    drop_rec, drop_ok = moe_dispatch_case(
+        layer, x, dataclasses.replace(mc, capacity_factor=MOE_DROP_CF))
+    rec["drop_case"] = drop_rec
+    ok = ok and drop_ok and drop_rec["dropped"] > 0
+    cap = rec["cap"]
+
+    # time: the whole layer by each dispatch (fp32 master weights, cast to
+    # bf16 in the call as in training; and bf16 weights, as in generation),
+    # and its expert products alone (forward, and forward + backward) on
+    # the dispatched buffer
+    layer16 = MoEMLP(d, mc, device="cuda", dtype=torch.bfloat16)
+    layer16.load_state_dict(layer.state_dict())
+    buf = torch.randn(mc.num_experts, cap, d, device="cuda", dtype=torch.bfloat16,
+                      generator=gen)
+    ws = [w.detach().to(torch.bfloat16).requires_grad_() for w in
+          (layer.w_gate, layer.w_up, layer.w_down)]
+    bufg = buf.clone().requires_grad_()
+
+    def experts(b):
+        h = torch.nn.functional.silu(torch.bmm(b, ws[0]).float()).to(b.dtype) \
+            * torch.bmm(b, ws[1])
+        return torch.bmm(h, ws[2])
+
+    def experts_fwd_bwd():
+        experts(bufg).sum().backward()
+    with torch.no_grad():
+        rec["scatter_ms"] = cuda_ms(lambda: moe_mlp(layer, x, mc, "scatter"), reps=10)
+        rec["dense_ms"] = cuda_ms(lambda: moe_mlp(layer, x, mc, "dense"), reps=10)
+        rec["scatter_bf16_weights_ms"] = cuda_ms(lambda: moe_mlp(layer16, x, mc, "scatter"),
+                                                 reps=10)
+        rec["experts_fwd_ms"] = cuda_ms(lambda: experts(buf), reps=10)
+    rec["experts_fwd_bwd_ms"] = cuda_ms(experts_fwd_bwd, reps=10)
+    flops = 3 * 2 * mc.num_experts * cap * d * mc.intermediate_size
+    rec["experts_fwd_bound_ms"] = flops / PEAK_BF16_FLOPS * 1e3
+    log(f"moe layer ms (cap {cap}, CUDA events): fp32 weights scatter={rec['scatter_ms']:.3f} "
+        f"dense={rec['dense_ms']:.3f}, bf16 weights scatter={rec['scatter_bf16_weights_ms']:.3f};"
+        f" expert products fwd={rec['experts_fwd_ms']:.3f} (bound "
+        f"{rec['experts_fwd_bound_ms']:.3f}, operations) fwd+bwd={rec['experts_fwd_bwd_ms']:.3f}")
+    del layer, layer16, ws, bufg, buf
+    if not ok:
+        raise SystemExit("chip_smoke: the MoE layer's dispatches or drops disagree")
+    return rec
+
+
+def moe_training(cfg_moe, batches, card: str) -> dict:
+    """Phase 16 (a): whole-model gradients of the MoE model (phase 7's
+    gates), then the Trainer as phase 8 runs it (bf16 frozen tower, dots,
+    grad_accum 2) for MOE_STEPS AdamW steps with moe_aux_weight
+    MOE_AUX_WEIGHT; then, from the trained state, one step at aux weight 0
+    and one at 0.5 over the routers alone."""
+    from aki_torch.models.aki import aki_forward
+    from aki_torch.models.common import BF16
+    from aki_torch.train.metrics import MetricsLogger
+    from aki_torch.train.optim import make_optimizer
+    from aki_torch.train.runner import RunnerConfig, Trainer
+    from aki_torch.train.step import TrainState, make_train_step
+
+    pc = cfg_moe.phi3
+    grads = whole_model_grads(cfg_moe, batches[0], "moe")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_moe")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg_moe, RunnerConfig(
+        run_dir=run_dir, precision="bf16", remat=True, remat_policy="dots", frozen_bf16=True,
+        grad_accum=2, warmup_steps=0, learning_rate=1e-4, total_steps=1000,
+        checkpoint_steps=10**9, log_every=1, seed=16, moe_aux_weight=MOE_AUX_WEIGHT),
+        device="cuda", metrics=MetricsLogger(run_dir, use_tensorboard=False))
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in trainer.state.optimizer.params)
+    log(f"moe trainer ({pc.num_layers} layers): trainable_params={n_train} init_seconds="
+        f"{time.perf_counter() - t0:.1f} memory_allocated_gb="
+        f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    want = {"fwd": 2 * (cfg_moe.siglip.num_layers + 2 * pc.num_layers),
+            "dq": 2 * pc.num_layers, "dkv": 2 * pc.num_layers}
+    steps = []
+    for _ in range(MOE_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        zero_launch_counts()
+        start.record()
+        trainer.run_epoch(iter(batches), epoch=0)
+        end.record()
+        end.synchronize()
+        m = trainer.metrics.last
+        steps.append(dict(step=m["step"], loss=m["training_loss"], grad_norm=m["grad_norm"],
+                          ms=start.elapsed_time(end), launches=launch_counts()))
+        log(f"moe train step {m['step']}: loss={m['training_loss']:.6f} "
+            f"grad_norm={m['grad_norm']:.6f} step_ms={steps[-1]['ms']:.1f} "
+            f"launches={steps[-1]['launches']} (want {want})")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_call("moe_train_step", lambda: trainer.run_epoch(iter(batches), epoch=0))
+    micro = batches[0]
+    with torch.no_grad():
+        aux = aki_forward(trainer.model, micro.input_ids, micro.images, micro.attn_valid,
+                          labels=micro.labels, policy=BF16).aux.item()
+    log(f"moe train peak_memory_allocated_gb={peak / 1e9:.3f} ({peak} bytes); aux of the "
+        f"trained model on micro-batch 0={aux:.6f}; {card}")
+
+    # one step at aux weight 0 and one at 0.5 from the same state and batch,
+    # the routers alone trained (an optimizer over them only)
+    model = trainer.model
+    stacked = trainer.put_batch(trainer._stack_micro(batches))
+    trainer.metrics.close()
+    trainer.state.optimizer.zero_grad()
+    del trainer
+    free_cuda()
+    routers = [layer.mlp.router.weight for layer in model.lang_model.model.layers]
+    start = [w.detach().clone() for w in routers]
+    by_weight = {}
+    for w in (0.0, 0.5):
+        with torch.no_grad():
+            for p, s0 in zip(routers, start):
+                p.copy_(s0)
+        opt = make_optimizer(model, 1e-4, frozen_predicate=lambda n: ".mlp.router." not in n)
+        m = make_train_step(cfg_moe, policy=BF16, remat=True, grad_accum=2, remat_policy="dots",
+                            moe_aux_weight=w)(TrainState(model, opt), stacked)
+        by_weight[w] = (float(m["loss"]), torch.cat([(p - s0).flatten()
+                                                    for p, s0 in zip(routers, start)]))
+        opt.zero_grad()
+        del opt
+    (l0, u0), (l1, u1) = by_weight[0.0], by_weight[0.5]
+    update_diff = (u1 - u0).abs().max().item()
+    log(f"moe aux weight 0 / 0.5 from one state: loss {l0:.6f} / {l1:.6f}; router updates "
+        f"max |diff|={update_diff:.4g} (max |update| {u0.abs().max().item():.4g})")
+    del model, routers, start, stacked, by_weight
+    losses = [st["loss"] for st in steps] + [st["grad_norm"] for st in steps] + [aux]
+    if not all(math.isfinite(v) for v in losses) or not aux > 0:
+        raise SystemExit("chip_smoke: non-finite MoE training loss, grad norm or aux")
+    if any(st["launches"] != want for st in steps):
+        raise SystemExit(f"chip_smoke: launches per MoE train step differ from {want}")
+    if not (l1 != l0 and update_diff > 0):
+        raise SystemExit("chip_smoke: the aux weight moved neither the loss nor the router")
+    return dict(whole_model=grads, steps=steps, peak_bytes=peak, aux=aux, profile=prof,
+                aux_weight_losses=[l0, l1], router_update_diff=update_diff,
+                launches={k: sum(st["launches"][k] for st in steps) for k in want})
+
+
+def moe_generation(cfg_moe, prompt) -> dict:
+    """Phase 16 (a): MOE_NEW greedy tokens for phase 4's request (a) on the
+    MoE model in bf16, the K1 launches of its prefill, and the prefill's
+    last logits with the kernel against the plain attention (phase 5's
+    gates, with the f32 run of the same weights)."""
+    from aki_torch.infer.engine import generate, prefill
+    from aki_torch.models.aki import AKIModel
+    from aki_torch.models.common import F32
+
+    model = AKIModel(cfg_moe, device="cuda", dtype=torch.bfloat16,
+                     generator=torch.Generator(device="cuda").manual_seed(17))
+    model.requires_grad_(False)
+    ids, image, valid, max_len = (prompt[k] for k in ("ids", "image", "valid", "max_len"))
+    generate(model, ids, image, valid, 2, max_len)           # warm-up
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    zero_launch_counts()
+    start.record()
+    tokens, num = generate(model, ids, image, valid, MOE_NEW, max_len)
+    end.record()
+    end.synchronize()
+    n = launch_counts()["fwd"]
+    want = cfg_moe.siglip.num_layers + cfg_moe.phi3.num_layers
+    # the plain and f32 prefills replay the kernel prefill's expert choices
+    # (RoutingPin), and are run with their own routing beside them
+    args = (ids, image, valid, max_len)
+    pin = RoutingPin()
+    with pin.run("record"):
+        with_kernel = prefill(model, *args).last_logits
+    with pin.run("replay"):
+        plain = prefill(model, *args, use_flash=False).last_logits
+    plain_own = prefill(model, *args, use_flash=False).last_logits
+    model.float()
+    with pin.run("replay"):
+        f32 = prefill(model, *args, policy=F32, use_flash=False).last_logits
+    f32_own = prefill(model, *args, policy=F32, use_flash=False).last_logits
+    del model
+    cosine = lambda a, b: torch.nn.functional.cosine_similarity(a, b, dim=-1).item()  # noqa: E731
+    cos, cos_k32, cos_p32 = cosine(with_kernel, plain), cosine(with_kernel, f32), cosine(plain, f32)
+    same = bool((with_kernel.argmax(-1) == plain.argmax(-1)).all())
+    own = dict(cosine=cosine(with_kernel, plain_own), cosine_kernel_f32=cosine(with_kernel, f32_own),
+               cosine_plain_f32=cosine(plain_own, f32_own),
+               argmax_equal=bool((with_kernel.argmax(-1) == plain_own.argmax(-1)).all()),
+               flipped_tokens_plain_f32=pin.flips)
+    toks = tokens[0].tolist()
+    log(f"moe generate (a): {MOE_NEW} tokens in {start.elapsed_time(end):.1f} ms, launches={n} "
+        f"(want {want}) tokens={toks}; prefill logits (expert choices pinned to the kernel "
+        f"prefill's) kernel vs plain cosine={cos:.6f} argmax_equal={same}; cosine to the f32 "
+        f"model: kernel {cos_k32:.6f} plain {cos_p32:.6f}; with their own routing (tokens whose "
+        f"choice differed, plain / f32: {pin.flips}): cosine={own['cosine']:.6f} argmax_equal="
+        f"{own['argmax_equal']}, to f32 kernel {own['cosine_kernel_f32']:.6f} plain "
+        f"{own['cosine_plain_f32']:.6f}")
+    if not all(torch.isfinite(x).all() for x in (with_kernel, plain, f32)):
+        raise SystemExit("chip_smoke: non-finite MoE prefill logits")
+    if n != want or tokens.shape != (1, MOE_NEW) or int(num[0]) != MOE_NEW or not all(
+            0 <= x < cfg_moe.output_vocab for x in toks):
+        raise SystemExit("chip_smoke: MoE generate launched or returned other than expected")
+    if cos < COSINE_MIN or not same or 1 - cos_k32 > 2 * (1 - cos_p32) + 1e-4:
+        raise SystemExit("chip_smoke: MoE prefill logits with the kernel differ from plain")
+    return dict(ms=start.elapsed_time(end), launches=n, tokens=toks, cosine=cos,
+                cosine_kernel_f32=cos_k32, cosine_plain_f32=cos_p32, own_routing=own)
+
+
+def flamingo_rows(cfg, gen: torch.Generator):
+    """Phase 16 (b)'s batch: 2 rows of FLAMINGO_TEXT text tokens with two
+    <image> tokens each, row 1 right-padded after 400 tokens; labels on
+    every valid token; 2 x 2 images in [-1, 1] at 384x384."""
+    t = FLAMINGO_TEXT
+    ids = torch.randint(100, 32000, (2, t), generator=gen)
+    ids[0, [5, 260]] = cfg.media_token_id
+    ids[1, [12, 300]] = cfg.media_token_id
+    valid = torch.ones_like(ids, dtype=torch.int32)
+    valid[1, 400:] = 0
+    ids[1, 400:] = cfg.pad_token_id
+    labels = torch.where(valid == 1, ids, -100)
+    s = cfg.siglip.image_size
+    images = torch.rand(2, 2, s, s, 3, generator=gen) * 2 - 1
+    return [x.cuda() for x in (ids, valid, labels, images)]
+
+
+def flamingo_phase(cfg) -> dict:
+    """Phase 16 (b): the Flamingo decoder at full aki_4b() width and depth
+    (a gated block before every FLAMINGO_EVERY_N-th layer, JAX's 8 heads x
+    64, ff_mult 4), fp32 master weights: at init equal to the plain decoder;
+    with the gates open (1), phase 7's gates on the next-token loss through
+    lm_logits under remat, the media encode_vision's tokens of 4 images."""
+    from torch import nn
+
+    from aki_torch.models.aki import AKIModel, embed_text, encode_vision, lm_logits
+    from aki_torch.models.aki import next_token_loss
+    from aki_torch.models.common import BF16
+    from aki_torch.models.flamingo import GatedCrossAttentionBlock, flamingo_decoder_forward
+
+    pc, d = cfg.phi3, cfg.phi3.hidden_size
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    model = AKIModel(cfg, device="cuda", generator=gen)
+    model.vision_encoder.requires_grad_(False)
+    blocks = nn.ModuleList(GatedCrossAttentionBlock(
+        d, d, heads=FLAMINGO_HEADS, dim_head=FLAMINGO_DIM_HEAD, ff_mult=FLAMINGO_FF_MULT,
+        device="cuda", generator=gen) for _ in range(pc.num_layers // FLAMINGO_EVERY_N))
+    n_block = sum(p.numel() for p in blocks[0].parameters())
+    ids, valid, labels, images = flamingo_rows(cfg, torch.Generator().manual_seed(19))
+    locs = ids == cfg.media_token_id
+    positions = torch.arange(ids.shape[1], device="cuda").expand(ids.shape)
+    kw = dict(cross_attn_every_n=FLAMINGO_EVERY_N, xattn_heads=FLAMINGO_HEADS,
+              xattn_dim_head=FLAMINGO_DIM_HEAD)
+
+    with torch.no_grad():
+        media = encode_vision(model, images, BF16)
+        embeds = embed_text(model, ids, BF16)
+        got = flamingo_decoder_forward(model.lang_model, blocks, cfg, embeds, positions, media,
+                                       locs, kv_valid=valid, policy=BF16, **kw)
+        base, _ = model.lang_model.model(embeds, positions, spec=None, kv_valid=valid,
+                                         policy=BF16)
+    equal = torch.equal(got, base)
+    media_shape = tuple(media.shape)
+    del got, base, media, embeds
+    with torch.no_grad():
+        for blk in blocks:
+            blk.attn_gate.fill_(1.0)
+            blk.ff_gate.fill_(1.0)
+
+    def loss_of(use_flash, policy):
+        media = encode_vision(model, images, policy, use_flash, remat=True)
+        hidden = flamingo_decoder_forward(model.lang_model, blocks, cfg,
+                                          embed_text(model, ids, policy), positions, media,
+                                          locs, kv_valid=valid, policy=policy,
+                                          use_flash=use_flash, remat=True, **kw)
+        return next_token_loss(lm_logits(model, hidden, policy), labels)
+    last = len(blocks) - 1
+    picks = grad_picks(model) | {"xattn0.to_kv": blocks[0].attn.to_kv.weight,
+                                 f"xattn{last}.ff.3": blocks[-1].ff[3].weight,
+                                 "xattn0.attn_gate": blocks[0].attn_gate}
+    want = {"fwd": cfg.siglip.num_layers + 2 * pc.num_layers, "dq": pc.num_layers,
+            "dkv": pc.num_layers}
+    rec = grad_gates(f"flamingo ({pc.num_layers} layers, {len(blocks)} blocks of {n_block} "
+                     f"params, media {media_shape}, gates open)", [model, blocks], loss_of,
+                     picks, want)
+
+    def step():
+        loss_of(True, BF16).backward()
+    rec["ms"] = cuda_ms(step, reps=3, warmup=1)
+    for m in (model, blocks):
+        m.zero_grad(set_to_none=True)
+    rec.update(zero_gates_equal=equal, block_params=n_block, blocks=len(blocks),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"flamingo: zero gates equal to the plain decoder={equal}; forward + backward "
+        f"ms={rec['ms']:.1f} peak_memory_allocated_gb={rec['peak_bytes'] / 1e9:.3f}")
+    del model, blocks
+    if not equal:
+        raise SystemExit("chip_smoke: the Flamingo decoder at zero gates differs from plain")
+    return rec
+
+
+def moe_and_flamingo(cfg, batches, prompt, card: str) -> dict:
+    """Phase 16: the MoE decoder (a) and the Flamingo decoder (b)."""
+    t0 = time.perf_counter()
+    cfg_moe = moe_config(cfg)
+    out = dict(layer=moe_layer(cfg_moe, batches[0].input_ids.shape[1] + cfg.perceiver.num_latents
+                                - 1))
+    free_cuda()
+    out["train"] = moe_training(cfg_moe, batches, card)
+    free_cuda()
+    # the expert products of one Trainer step, from their times alone: each
+    # of the 2 micro-batches runs every layer's forward twice (the forward
+    # and the recompute: dots keeps no batched product) and its backward
+    lay, tr = out["layer"], out["train"]
+    experts = 2 * cfg_moe.phi3.num_layers * (lay["experts_fwd_ms"] + lay["experts_fwd_bwd_ms"])
+    tr["experts_ms_per_step"] = experts
+    if tr["profile"]:
+        tr["experts_share_of_busy"] = experts / tr["profile"]["busy_ms"]
+    log(f"moe train step: expert products ~{experts:.1f} ms a step (from their times alone) of "
+        f"{tr['profile']['busy_ms'] if tr['profile'] else float('nan'):.1f} device busy ms")
+    out["generate"] = moe_generation(cfg_moe, prompt)
+    free_cuda()
+    out["flamingo"] = flamingo_phase(cfg)
+    free_cuda()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 seconds={out['seconds']:.1f}")
+    return out
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3283,6 +3842,12 @@ def main() -> int:
     clis = training_clis(card)
     free_cuda()
 
+    # 16. the MoE decoder (4 layers of AKI-4B width) and the Flamingo decoder
+    variants = moe_and_flamingo(cfg, batches, int8_prompts[0], card)
+    v_launch = {k: variants["train"]["launches"][k] + variants["flamingo"]["launches"][k]
+                for k in ("fwd", "dq", "dkv")}
+    v_launch["fwd"] += variants["generate"]["launches"]
+
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
     tb, ti = bwd[0], bwd[1]
@@ -3301,10 +3866,13 @@ def main() -> int:
                     "aki_tpu/ops/flash_mma.py:79 (_kernel); its lse output carries "
                     "aki_tpu/ops/flash_mma_bwd.py:68 (_lse_kernel)",
         "launches": (launches + train_launches["fwd"] + consumers["launches"]
-                     + clis["launches"]["fwd"]),
+                     + clis["launches"]["fwd"] + v_launch["fwd"]),
         "launches_by_path": {"generate": launches, "train": train_launches["fwd"],
                              "consumers": consumers["launches"],
-                             "training_clis": clis["launches"]["fwd"]},
+                             "training_clis": clis["launches"]["fwd"],
+                             "moe_train": variants["train"]["launches"]["fwd"],
+                             "moe_generate": variants["generate"]["launches"],
+                             "flamingo": variants["flamingo"]["launches"]["fwd"]},
         "max_abs_err": max([c["max_abs_err"] for c in cases + k1_b48]
                            + [c["fwd_max_abs_err"] for c in bwd]),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3326,9 +3894,11 @@ def main() -> int:
         "source": "aki_torch/csrc/flash_mma_bwd.cu",
         "replaces": ("aki_tpu/ops/flash_mma_bwd.py:111 (_dq_kernel)" if kn == "dq"
                      else "aki_tpu/ops/flash_mma_bwd.py:157 (_dkv_kernel)"),
-        "launches": train_launches[kn] + clis["launches"][kn],
+        "launches": train_launches[kn] + clis["launches"][kn] + v_launch[kn],
         "launches_by_path": {"train": train_launches[kn],
-                             "training_clis": clis["launches"][kn]},
+                             "training_clis": clis["launches"][kn],
+                             "moe_train": variants["train"]["launches"][kn],
+                             "flamingo": variants["flamingo"]["launches"][kn]},
         "max_abs_err": max(c[g]["max_abs_err"] for c in bwd
                            for g in (("dq",) if kn == "dq" else ("dk", "dv"))),
         "ms": tb[f"{kn}_ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb[f"{kn}_bound_ms"],
@@ -3350,7 +3920,7 @@ def main() -> int:
         "note": bwd_note,
     } for kn in ("dq", "dkv")],
         "backward_cases": bwd, "whole_model": grads, "whole_model_interleaved": grads_inter,
-        "training_clis": clis,
+        "training_clis": clis, "moe_and_flamingo": variants,
         "train": {k: train[k] for k in ("steps", "peak_bytes", "tokens_per_step")}}
     int8_runs = [r["launches"] for r in int8_gen["requests"]] + [serve["launches"]]
     k4 = dec_cases[0]

@@ -38,3 +38,14 @@ def hash_tiny_params(seed: int):
     geometry of ``from_pretrained(tiny=True)`` and the ``--tiny`` CLIs), a
     fresh copy on every call."""
     return jax.tree.map(np.copy, _hash_params(seed))
+
+
+@functools.lru_cache(maxsize=None)
+def _cfg_params(cfg, seed: int):
+    return jax.tree.map(np.asarray, _init(jax.random.PRNGKey(seed), cfg))
+
+
+def cfg_params(cfg, seed: int):
+    """``init_aki(PRNGKey(seed), cfg)`` for a JAX config ``cfg`` (e.g.
+    ``aki_tiny`` with a MoE decoder), a fresh copy on every call."""
+    return jax.tree.map(np.copy, _cfg_params(cfg, seed))

@@ -35,6 +35,7 @@ def test_port_imports_neither_jax_nor_aki_tpu():
     assert {"aki_torch.ops.flash_mma", "aki_torch.infer.engine", "aki_torch.infer.server",
             "aki_torch.models.quant", "aki_torch.ops.fused_quant",
             "aki_torch.ops.decode_attention", "aki_torch.ops.flash_mma_q8",
+            "aki_torch.models.moe", "aki_torch.models.flamingo",
             *CONSUMER_MODULES, *TRAINING_MODULES} <= set(modules)
     code = (
         "import importlib, sys\n"
@@ -109,3 +110,7 @@ def test_entry_points_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model)
+    from aki_torch.models.flamingo import GatedCrossAttentionBlock
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GatedCrossAttentionBlock(64, 64)

@@ -7,7 +7,8 @@ and the backward, counted where a region keeps it (``common._keep``):
 ``full`` nothing, ``dots`` every product's output in place, ``dots_nowide``
 none of the MLP's wide gate/up product, ``host_offload`` nothing (it is
 ``full``); the attention forward is recomputed under each (its calls
-counted); and the CLIs' ``AKI_REMAT_POLICY``.
+counted); and the CLIs' ``AKI_REMAT_POLICY``. The same equality holds for
+the MoE decoder (with dropped choices) and the Flamingo decoder.
 """
 
 import dataclasses
@@ -16,10 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from aki_torch.models import common
+from aki_torch.models import common, flamingo
 from aki_torch.models.aki import AKIModel
 from aki_torch.models.common import F32
-from aki_torch.models.configs import aki_tiny
+from aki_torch.models.configs import MoEConfig, aki_tiny
 from aki_torch.ops import flash_mma
 from aki_torch.train.step import Batch, make_loss_fn
 
@@ -159,3 +160,78 @@ def test_cli_reads_aki_remat_policy(monkeypatch):
         monkeypatch.setenv("AKI_REMAT_POLICY", name)
         with pytest.raises(ValueError, match="AKI_REMAT_POLICY"):
             remat_policy()
+
+
+MOE_CFG = dataclasses.replace(CFG, phi3=dataclasses.replace(CFG.phi3, moe=MoEConfig(
+    num_experts=4, top_k=2, intermediate_size=32, capacity_factor=0.6)))
+
+
+@pytest.fixture(scope="module")
+def moe_no_remat():
+    with pytest.MonkeyPatch.context() as mp:
+        return run(MOE_CFG, None, mp)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_moe_policies_keep_loss_and_grads(moe_no_remat, monkeypatch, policy):
+    """The MoE decoder (capacity factor 0.6: choices dropped) under every
+    policy: the routing, drops and aux of the recompute are those of the
+    forward, so loss and gradients equal no recompute; dots keeps the
+    router's product (the experts' are batched products, recomputed, as
+    JAX's dots_with_no_batch_dims_saveable leaves them)."""
+    loss, grads, kept, _ = run(MOE_CFG, policy, monkeypatch)
+    want_loss, want_grads, _, _ = moe_no_remat
+    assert abs(loss - want_loss) <= 1e-6 * abs(want_loss)
+    assert grads.keys() == want_grads.keys()
+    assert {"lang_model.model.layers.1.mlp.router.weight",
+            "lang_model.model.layers.1.mlp.w_down"} <= grads.keys()
+    for n, g in grads.items():
+        torch.testing.assert_close(g, want_grads[n], rtol=1e-6, atol=1e-8, msg=n)
+    n_products = 5 * CFG.perceiver.depth + 3 * CFG.phi3.num_layers    # qkv, o, router
+    assert len(kept) == (0 if policy in ("full", "host_offload") else n_products)
+    if kept:
+        assert sum(s[-1] == MOE_CFG.phi3.moe.num_experts for s, *_ in kept) == \
+            CFG.phi3.num_layers
+
+
+def flamingo_run(policy):
+    """Loss and gradients of a fixed projection of the Flamingo decoder's
+    output (one block before each layer, gates open)."""
+    model = AKIModel(CFG, device="cpu", generator=torch.Generator().manual_seed(2))
+    d = CFG.phi3.hidden_size
+    blocks = torch.nn.ModuleList(flamingo.GatedCrossAttentionBlock(
+        d, d, heads=2, dim_head=8, ff_mult=2, device="cpu",
+        generator=torch.Generator().manual_seed(3 + g)) for g in range(CFG.phi3.num_layers))
+    with torch.no_grad():
+        for blk in blocks:
+            blk.attn_gate.fill_(1.0)
+            blk.ff_gate.fill_(0.5)
+    rng = np.random.RandomState(4)
+    b, t = 2, 12
+    embeds = torch.tensor(rng.randn(b, t, d).astype(np.float32))
+    media = torch.tensor(rng.randn(b, 2, 3, d).astype(np.float32))
+    locs = torch.zeros(b, t, dtype=torch.bool)
+    locs[:, [2, 7]] = True
+    valid = torch.ones(b, t, dtype=torch.int32)
+    valid[1, 9:] = 0
+    proj = torch.tensor(rng.randn(b, t, d).astype(np.float32))
+    hidden = flamingo.flamingo_decoder_forward(
+        model.lang_model, blocks, CFG, embeds, torch.arange(t).expand(b, t), media, locs,
+        kv_valid=valid, cross_attn_every_n=1, policy=F32, remat=policy is not None,
+        xattn_heads=2, xattn_dim_head=8, remat_policy=policy or "full")
+    loss = (hidden * proj).sum()
+    loss.backward()
+    named = [*model.lang_model.named_parameters(), *blocks.named_parameters(prefix="xattn")]
+    return loss.item(), {n: p.grad for n, p in named if p.grad is not None}
+
+
+@pytest.mark.parametrize("policy", common.REMAT_POLICIES)
+def test_flamingo_policies_keep_loss_and_grads(policy):
+    """Each gated block and decoder layer of the Flamingo decoder is a
+    region: every policy gives the gradients of no recompute."""
+    want_loss, want = flamingo_run(None)
+    loss, grads = flamingo_run(policy)
+    assert abs(loss - want_loss) <= 1e-6 * abs(want_loss)
+    assert grads.keys() == want.keys() and "xattn.1.attn.to_kv.weight" in grads
+    for n, g in grads.items():
+        torch.testing.assert_close(g, want[n], rtol=1e-6, atol=1e-8, msg=n)

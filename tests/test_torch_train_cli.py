@@ -285,6 +285,19 @@ def test_unported_keys_raise(override, match):
             mod.main(["--config", f"aki_torch/configs/{cfg}.yaml", "--device", "cpu", ov])
 
 
+@pytest.mark.parametrize("case", ["paired", "sft"])
+def test_clis_read_moe_aux_weight(case, tmp_path, monkeypatch):
+    """``moe_aux_weight`` reaches the runner config as in the JAX CLIs: the
+    default 0.01, and a YAML override."""
+    path = write_sft(tmp_path) if case == "sft" else write_pretrain(tmp_path, False)
+    port, jax_mod = CASES[case]
+    key = "training_config" if case == "sft" else "training"
+    for argv, weight in (([], 0.01), ([f"{key}.moe_aux_weight=0.3"], 0.3)):
+        want = record(jax_mod, ["--config", str(path), *argv], monkeypatch)
+        got = record(port, ["--config", str(path), "--device", "cpu", *argv], monkeypatch)
+        assert got.cfg.moe_aux_weight == want.cfg.moe_aux_weight == weight
+
+
 def test_accum_unroll_accepted_and_default_device_is_the_card():
     """``accum_unroll`` is a key the CLIs do not read (nothing to unroll in
     an eager loop): a YAML that sets it builds the same runner config."""
