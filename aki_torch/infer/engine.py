@@ -50,6 +50,14 @@ def _on(model: AKIModel, device) -> torch.device:
     return model.device
 
 
+def use_tensor_parallel(model: AKIModel, tp_mesh) -> None:
+    """Cut ``model`` to this rank's ``tensor`` block unless it already is."""
+    if tp_mesh is not None and model.lang_model.model.tp is None:
+        from ..parallel.tensor import shard_tensor_parallel
+
+        shard_tensor_parallel(model, tp_mesh)
+
+
 @torch.inference_mode()
 def prefill(
     model: AKIModel,
@@ -66,6 +74,7 @@ def prefill(
     kv_int8: bool = False,
     slot_state: GenState | None = None,
     slots=None,
+    tp_mesh=None,
 ) -> GenState:
     """Run the prompt through the model, filling a fresh KV cache of
     ``max_len`` slots (int8 :class:`KVCacheQ` with ``kv_int8``).
@@ -81,8 +90,14 @@ def prefill(
     length and last logits into the same rows of ``slot_state``; a slot
     equal to the slot count drops the row (padded admissions). ``slots``
     is read on the host. Returns ``slot_state``, updated in place.
+
+    ``tp_mesh``: tensor-parallel serving over the mesh's ``tensor`` axis;
+    the model is cut to this rank's heads in place on first use
+    (:func:`~aki_torch.parallel.tensor.shard_tensor_parallel`), and every
+    rank of the axis makes the same call.
     """
     dev = _on(model, device)
+    use_tensor_parallel(model, tp_mesh)
     if attn_mode is not None:
         if attn_mode not in ("mma", "dot", "causal"):
             raise ValueError(f"attn_mode {attn_mode!r}")
@@ -108,9 +123,11 @@ def prefill(
             raise ValueError("slot_state requires slots")
         cache = slot_state.cache
     elif kv_int8:
-        cache = KVCacheQ.create(cfg.phi3, b, max_len, device=dev)
+        # the decoder's config: a tensor-parallel rank's local KV heads
+        cache = KVCacheQ.create(model.lang_model.model.cfg, b, max_len, device=dev)
     else:
-        cache = KVCache.create(cfg.phi3, b, max_len, dtype=policy.compute_dtype, device=dev)
+        cache = KVCache.create(model.lang_model.model.cfg, b, max_len,
+                               dtype=policy.compute_dtype, device=dev)
     kv_valid = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
     kv_valid[:, :t_full] = sp.attn_valid
     zero = torch.zeros((b,), dtype=torch.int64, device=dev)
@@ -176,6 +193,7 @@ def generate(
     device="cuda",
     on_prefill: Callable[[], None] | None = None,
     kv_int8: bool = False,
+    tp_mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched generation. Returns (tokens (B, max_new_tokens) — pad-filled
     after a row stops —, number generated per row (B,), counting the eos).
@@ -183,10 +201,10 @@ def generate(
     when None, as JAX defaults to ``PRNGKey(0)``). ``on_prefill`` is called
     once the prefill is issued and before the first decode step (e.g. to
     record a CUDA event that splits the call's time). ``kv_int8`` keeps the
-    cache in int8 (:class:`KVCacheQ`)."""
+    cache in int8 (:class:`KVCacheQ`). ``tp_mesh``: as :func:`prefill`."""
     state = prefill(model, input_ids, images, attn_valid, max_len, policy=policy,
                     use_flash=use_flash, order=order, attn_mode=attn_mode,
-                    device=device, kv_int8=kv_int8)
+                    device=device, kv_int8=kv_int8, tp_mesh=tp_mesh)
     if on_prefill is not None:
         on_prefill()
     if generator is None:

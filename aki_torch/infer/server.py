@@ -24,8 +24,12 @@ A fixed pool of KV-cache *slots* serves many requests at once:
 The device work is three calls — the admission prefill, the decode chunk
 and the compaction's row moves — plus the split-path insert kept as the
 admission's oracle; the host loop is bookkeeping only. Every argument of
-the JAX constructor keeps its meaning; ``tp_mesh`` (tensor-parallel
-serving) is not ported yet.
+the JAX constructor keeps its meaning. With ``tp_mesh`` (tensor-parallel
+serving, one engine per rank of the mesh's ``tensor`` axis, all fed the
+same requests in the same order) the decoder holds this rank's heads
+(:mod:`aki_torch.parallel.tensor`), the KV cache, bf16 or int8, holds
+them on its head dim, and uploads run in ``submit`` so that every rank
+admits the same requests at the same step.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch
 from ..models.aki import AKIModel
 from ..models.common import BF16, Policy, resolve_device
 from ..models.phi3 import KVCache, KVCacheQ, slot_rows
-from .engine import GenState, decode_step, prefill
+from .engine import GenState, decode_step, prefill, use_tensor_parallel
 from .sampling import SamplingConfig, sample
 
 _log = logging.getLogger(__name__)
@@ -79,14 +83,15 @@ class ServingEngine:
                  compact_tail: bool = False, attn_mode: str | None = None,
                  align_completions: bool = True, upload_chunk: int | None = None,
                  upload_threads: int = 2, upload_ramp: bool = True, device="cuda"):
-        if tp_mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (tp_mesh) is not ported: "
-                                      "ROADMAP Queue 1 item 10")
         if admit_policy not in ("greedy", "batched"):
             raise ValueError(f"admit_policy {admit_policy!r}")
         device = resolve_device(device)
         if model.device.type != device.type:
             raise ValueError(f"model is on {model.device}, the engine asked for {device}")
+        use_tensor_parallel(model, tp_mesh)
+        # every rank of a tensor-parallel engine must make the same
+        # scheduling decisions: its uploads run in submit, in order
+        self.tensor_parallel = model.lang_model.model.tp is not None
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -176,9 +181,10 @@ class ServingEngine:
         """A zeroed GenState with ``width`` slot rows."""
         dev = self.device
         if self.kv_int8:
-            cache = KVCacheQ.create(self.cfg.phi3, width, self.max_len, device=dev)
+            cache = KVCacheQ.create(self.model.lang_model.model.cfg, width, self.max_len,
+                                    device=dev)
         else:
-            cache = KVCache.create(self.cfg.phi3, width, self.max_len,
+            cache = KVCache.create(self.model.lang_model.model.cfg, width, self.max_len,
                                    dtype=self.policy.compute_dtype, device=dev)
         return GenState(
             cache=cache,
@@ -374,6 +380,12 @@ class ServingEngine:
         if isinstance(image, torch.Tensor) and image.device == self.device:
             # pixels already on the card: admissible at once
             req._image_dev = image
+            self.queue.put(req)
+            return req
+        if self.tensor_parallel:
+            # no uploader threads: what is admissible then depends on the
+            # order of submit alone, the same on every rank
+            req._image_dev = self._put(np.asarray(image, self._host_dtype)[None])[0]
             self.queue.put(req)
             return req
         # host pixels ride the uploader threads; the request becomes

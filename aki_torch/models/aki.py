@@ -80,6 +80,13 @@ class AKIModel(nn.Module):
     def device(self) -> torch.device:
         return self.lang_model.lm_head.bias.device
 
+    def forward(self, *args, **kwargs) -> "AKIOutput":
+        """:func:`aki_forward` on this model. The training forward goes
+        through the module call, so that a model sharded with FSDP2
+        gathers its root parameters (the embeddings, the head, the final
+        norm) around it."""
+        return _aki_forward(self, *args, **kwargs)
+
 
 @dataclasses.dataclass
 class AKIOutput:
@@ -119,6 +126,15 @@ def lm_logits(model: AKIModel, hidden: torch.Tensor, policy: Policy = BF16) -> t
     head stay float."""
     head = model.lang_model.lm_head
     quant = getattr(head, "quant", None)
+    tp = getattr(head, "tp", None)
+    if tp is not None:
+        # vocab-parallel head: each rank's rows of the vocab, gathered
+        n0 = model.cfg.initial_tokenizer_len
+        base = tp.all_gather_last(hidden @ policy.cast(head.weight).T)[..., :n0]
+        base = base + head.bias[:n0].to(base.dtype)
+        extra = hidden @ policy.cast(head.additional_fc.weight).T
+        extra = extra + head.additional_fc.bias.to(extra.dtype)
+        return torch.cat([base, extra], dim=-1)
     return decoupled_logits(hidden, policy.cast(head.weight) if quant is None else quant,
                             policy.cast(head.additional_fc.weight),
                             model.cfg.initial_tokenizer_len,
@@ -137,6 +153,33 @@ def next_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return total / valid.sum().clamp(min=1)
 
 
+def shift_labels(labels: torch.Tensor) -> torch.Tensor:
+    """Row t's target, ``labels[:, t + 1]``, and -100 at the last row: the
+    label shift done once on the whole spliced sequence, before a split
+    along T (a shard's last row needs the next shard's first label)."""
+    pad = torch.full_like(labels[:, :1], -100)
+    return torch.cat([labels[:, 1:], pad], dim=1)
+
+
+def shard_token_loss(logits: torch.Tensor, targets: torch.Tensor, group) -> torch.Tensor:
+    """This rank's share of the global mean cross-entropy: the sum over its
+    rows of the shifted ``targets`` (-100 ignored) over the count of valid
+    targets summed over ``group`` (the batch and sequence ranks). The
+    shares of the group's ranks add up to JAX's ``next_token_loss`` of the
+    global batch, also when ranks hold different numbers of labels."""
+    import torch.distributed as dist
+
+    logits = logits.float()
+    valid = targets != -100
+    safe = torch.where(valid, targets, 0).clamp(0, logits.shape[-1] - 1)
+    logp = torch.log_softmax(logits, dim=-1)
+    tok = torch.gather(logp, -1, safe[..., None].to(torch.int64))[..., 0]
+    total = torch.where(valid, -tok, 0.0).sum()
+    count = valid.sum().to(torch.float32)
+    dist.all_reduce(count, group=group)
+    return total / count.clamp(min=1)
+
+
 def aki_forward(
     model: AKIModel,
     input_ids,
@@ -150,6 +193,8 @@ def aki_forward(
     device="cuda",
     remat: bool = False,
     remat_policy: str = "full",
+    loss_group=None,
+    seq_group=None,
 ) -> AKIOutput:
     """Training/eval forward over the whole spliced sequence.
 
@@ -164,8 +209,26 @@ def aki_forward(
     (``remat_policy`` as in :data:`~aki_torch.models.common.REMAT_POLICIES`).
     A MoE decoder (``cfg.phi3.moe``) returns its Switch aux loss in ``aux``,
     for the trainer to weigh in.
+
+    Sharded (:mod:`aki_torch.parallel`): with ``loss_group`` (the process
+    group of the batch and sequence ranks) ``loss`` is this rank's share of
+    the global loss (:func:`shard_token_loss`); with ``seq_group`` the
+    splice and the label shift run on the whole sequence, then the decoder,
+    the head and the loss on this rank's T/n rows (``logits`` holds those).
     """
+    return model(input_ids, images, attn_valid, labels=labels, policy=policy,
+                 use_flash=use_flash, order=order, vision_tokens=vision_tokens,
+                 device=device, remat=remat, remat_policy=remat_policy,
+                 loss_group=loss_group, seq_group=seq_group)
+
+
+def _aki_forward(model, input_ids, images, attn_valid, labels=None, policy=BF16,
+                 use_flash=True, order="image_first", vision_tokens=None, device="cuda",
+                 remat=False, remat_policy="full", loss_group=None,
+                 seq_group=None) -> AKIOutput:
     device = resolve_device(device)
+    if seq_group is not None and loss_group is None:
+        loss_group = seq_group
     to = lambda x: None if x is None else torch.as_tensor(x, device=device)  # noqa: E731
     input_ids, attn_valid, labels = to(input_ids), to(attn_valid), to(labels)
     cfg = model.cfg
@@ -182,10 +245,26 @@ def aki_forward(
                                   cfg.media_token_id, cfg.assistant_token_id, labels=labels,
                                   order=order)
     moe = cfg.phi3.moe is not None
-    hidden, _, *aux = model.lang_model.model(sp.embeds, sp.positions, spec=sp.spec,
+    embeds, positions = sp.embeds, sp.positions
+    targets = None if labels is None or loss_group is None else shift_labels(sp.labels)
+    seq = None
+    if seq_group is not None:
+        from ..ops.ring_attention import SeqShard
+
+        seq = SeqShard.create(seq_group, embeds.shape[1], sp.spec, sp.attn_valid)
+        rows = slice(seq.lo, seq.lo + seq.tl)
+        embeds, positions = embeds[:, rows], positions[:, rows]
+        targets = None if targets is None else targets[:, rows]
+    hidden, _, *aux = model.lang_model.model(embeds, positions, spec=sp.spec,
                                              kv_valid=sp.attn_valid, policy=policy,
                                              use_flash=use_flash, remat=remat,
-                                             remat_policy=remat_policy, with_aux=moe)
+                                             remat_policy=remat_policy, with_aux=moe,
+                                             seq=seq)
     logits = lm_logits(model, hidden, policy)
-    loss = next_token_loss(logits, sp.labels) if labels is not None else None
+    if labels is None:
+        loss = None
+    elif loss_group is not None:
+        loss = shard_token_loss(logits, targets, loss_group)
+    else:
+        loss = next_token_loss(logits, sp.labels)
     return AKIOutput(logits=logits, loss=loss, spliced=sp, aux=aux[0] if moe else None)

@@ -7,9 +7,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -36,11 +38,17 @@ BF16 = Policy()
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. ``"cuda"`` (the default of every
     entry point) raises where there is no card: nothing falls back to the
-    CPU unless the caller asks for ``"cpu"``."""
+    CPU unless the caller asks for ``"cpu"``. Under an initialised process
+    group, ``"cuda"`` is this rank's card, ``cuda:{LOCAL_RANK}``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("aki_torch: no CUDA device; pass device='cpu' to "
                            "run on the CPU")
+    if (device.type == "cuda" and device.index is None and dist.is_available()
+            and dist.is_initialized()):
+        # one process per card: this rank's card, not card 0
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                         torch.cuda.current_device())))
     return device
 
 

@@ -18,8 +18,20 @@
   every token given, padding included, as in JAX.
 
 The expert products are ``torch.bmm`` over the stacked ``(E, ...)`` weights.
-The JAX module's ``expert`` mesh axis (a sharding constraint on the
-dispatched buffer) is a multi-device mode and is not ported here.
+
+Sharded (``MoEMLP.par``, a :class:`~aki_torch.parallel.expert.MoEParallel`
+set by :func:`~aki_torch.parallel.expert.shard_experts`): under GSPMD
+JAX's layer sees the global token set, so the capacity, each choice's
+place and which choices drop are global. Each rank gathers the ranks'
+expert choices (a few ints a token), places them in the global token order
+and keeps its own tokens' places; the capacity counts the global tokens;
+the aux takes its two means over them. The buffer holds this rank's rows
+only: a rank's tokens keep their order inside the global set, so the kept
+choices of an expert are the first of the rank's own choices of it, and
+their places among those (below ``min(cap, N)``) are their slots. With the
+``expert`` axis each rank holds E/n experts and runs them on their rows of
+its buffer, and the outputs are gathered over the expert ranks (which hold
+the same tokens).
 """
 
 from __future__ import annotations
@@ -77,30 +89,43 @@ class Routing:
     cap: int
 
 
-def route(moe: MoEMLP, xf: torch.Tensor, cfg: MoEConfig) -> Routing:
+def route(moe: MoEMLP, xf: torch.Tensor, cfg: MoEConfig, par=None, rows: int = 1
+          ) -> Routing:
     """Routing of the rows ``xf`` (N, D) in the compute dtype. The top-k
     is a step function of the logits: a rounding that moves two near-equal
-    logits past each other sends the token to another expert."""
+    logits past each other sends the token to another expert. With ``par``
+    the capacity and the places are those of the global token set, of which
+    ``xf`` is this rank's ``rows`` batch rows."""
     n_tok, e, k = xf.shape[0], cfg.num_experts, cfg.top_k
-    cap = capacity(n_tok, cfg)
     # f32 logits of compute-dtype operands: a product of two bf16 values is
     # exact in f32, so only the f32 sum rounds (JAX's preferred_element_type)
     w = moe.router.weight.to(xf.dtype)
     logits = product(F.linear, xf.float(), w.float())
     probs = torch.softmax(logits, dim=-1)
     top_p, top_idx = torch.topk(probs, k, dim=-1, sorted=True)
-    return place(probs, top_p, top_idx, e, cap)
+    if par is not None and par.tokens > 1:
+        return place(probs, top_p, top_idx, e, capacity(n_tok * par.tokens, cfg),
+                     par.global_positions(top_idx, e, rows))
+    return place(probs, top_p, top_idx, e, capacity(n_tok, cfg))
 
 
-def place(probs: torch.Tensor, top_p: torch.Tensor, top_idx: torch.Tensor, e: int,
-          cap: int) -> Routing:
-    """The places of the chosen experts ``top_idx`` (N, k) in their
-    buffers, choice-major, and which are kept (place below ``cap``, nonzero
-    probability)."""
+def positions(top_idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Each choice's place in its expert's buffer (N, k): the choices taken
+    choice-major (all first choices, then all second choices, ...), each in
+    token order."""
     n_tok, k = top_idx.shape
     onehot = F.one_hot(top_idx, e)                                   # (N, k, E)
     flat = onehot.transpose(0, 1).reshape(k * n_tok, e)              # choice-major
-    pos = ((flat.cumsum(0) - 1) * flat).sum(-1).reshape(k, n_tok).T  # (N, k)
+    return ((flat.cumsum(0) - 1) * flat).sum(-1).reshape(k, n_tok).T  # (N, k)
+
+
+def place(probs: torch.Tensor, top_p: torch.Tensor, top_idx: torch.Tensor, e: int,
+          cap: int, pos: torch.Tensor | None = None) -> Routing:
+    """The places of the chosen experts ``top_idx`` (N, k) in their
+    buffers (``pos``, or :func:`positions`), and which are kept (place
+    below ``cap``, nonzero probability)."""
+    if pos is None:
+        pos = positions(top_idx, e)
     keep = (pos < cap) & (top_p > 0)
     return Routing(probs, top_p, top_idx, pos, keep, cap)
 
@@ -109,35 +134,45 @@ def moe_mlp(moe: MoEMLP, x: torch.Tensor, cfg: MoEConfig, dispatch: str = "scatt
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The routed mixture over ``x`` (B, T, D), in x's dtype (the compute
     dtype: the weights are cast to it, as the JAX function casts them).
-    Returns (output (B, T, D), the f32 aux loss)."""
+    Returns (output (B, T, D), the f32 aux loss). Sharded by ``moe.par``
+    when set (the module docstring)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch {dispatch!r} is not one of {DISPATCHES}")
     b, t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     n_tok = b * t
     xf = x.reshape(n_tok, d)
-    r = route(moe, xf, cfg)
-    cap = r.cap
+    par = getattr(moe, "par", None)
+    r = route(moe, xf, cfg, par, rows=b)
+    if par is not None and par.tokens > 1:
+        # this rank's rows only (the module docstring): local places
+        pos, cap = positions(r.top_idx, e), min(r.cap, n_tok)
+    else:
+        pos, cap = r.pos, r.cap
     gates = r.top_p / r.top_p.sum(-1, keepdim=True)
     gk = gates.to(x.dtype) * r.keep.to(x.dtype)                      # (N, k)
 
     if dispatch == "scatter":
-        slot = torch.where(r.keep, r.top_idx * cap + r.pos, e * cap).reshape(-1)
+        slot = torch.where(r.keep, r.top_idx * cap + pos, e * cap).reshape(-1)
         rows = xf[:, None].expand(n_tok, k, d).reshape(n_tok * k, d)
         buf = xf.new_zeros(e * cap + 1, d).index_copy(0, slot, rows)
         buf = buf[: e * cap].reshape(e, cap, d)
     else:
         # (N, k, E, C): 1 where choice (n, k) lands in slot (e, c)
         ek = (F.one_hot(r.top_idx, e).to(x.dtype)[..., None]
-              * F.one_hot(torch.where(r.keep, r.pos, cap), cap + 1)
+              * F.one_hot(torch.where(r.keep, pos, cap), cap + 1)
               .to(x.dtype)[..., :cap][:, :, None, :])
         buf = torch.einsum("nec,nd->ecd", ek.sum(1), xf)            # (E, C, D)
 
     wg, wu, wd = (w.to(x.dtype) for w in (moe.w_gate, moe.w_up, moe.w_down))
+    if par is not None and par.ep_size > 1:
+        buf = par.experts_rows(buf)                   # this rank's experts
     gate = torch.bmm(buf, wg)
     up = torch.bmm(buf, wu)
     h = F.silu(gate.float()).to(up.dtype) * up
     out_buf = torch.bmm(h, wd)                        # (E, C, D)
+    if par is not None and par.ep_size > 1:
+        out_buf = par.gather_experts(out_buf)
 
     if dispatch == "scatter":
         # each choice's expert row; a dropped choice reads the zero row
@@ -147,6 +182,11 @@ def moe_mlp(moe: MoEMLP, x: torch.Tensor, cfg: MoEConfig, dispatch: str = "scatt
         combine = (gk[..., None, None] * ek).sum(1)                  # (N, E, C)
         out = torch.einsum("nec,ecd->nd", combine, out_buf)
 
-    frac_tokens = F.one_hot(r.top_idx[:, 0], e).float().mean(0)
-    aux = e * (frac_tokens * r.probs.mean(0)).sum()
+    if par is not None and par.tokens > 1:
+        frac_tokens, frac_probs = par.global_means(F.one_hot(r.top_idx[:, 0], e).float(),
+                                                   r.probs)
+    else:
+        frac_tokens = F.one_hot(r.top_idx[:, 0], e).float().mean(0)
+        frac_probs = r.probs.mean(0)
+    aux = e * (frac_tokens * frac_probs).sum()
     return out.reshape(b, t, d), aux

@@ -52,6 +52,29 @@ class PerceiverAttention(nn.Module):
         return linear(self.to_out, out.reshape(b, -1, h * dh), policy)
 
 
+class PerceiverBlock(nn.Module):
+    """The attention and the feed-forward of one block (the reference's
+    ``layers.{i}.0`` / ``.1`` names) as one module with a forward, so that a
+    sharded block (an FSDP2 unit) gathers its weights around it."""
+
+    def __init__(self, attn: nn.Module, ff: nn.Module):
+        super().__init__()
+        self.add_module("0", attn)
+        self.add_module("1", ff)
+
+    def __iter__(self):
+        return iter((self._modules["0"], self._modules["1"]))
+
+    def forward(self, x, latents, cfg: PerceiverConfig, policy: Policy) -> torch.Tensor:
+        attn, ff = self
+        cast = policy.cast
+        latents = latents + attn(x, latents, cfg, policy)
+        f = layernorm(cast(ff[0].weight), cast(ff[0].bias), latents)
+        f = linear(ff[1], f, policy)
+        f = F.gelu(f.float()).to(f.dtype)
+        return latents + linear(ff[3], f, policy)
+
+
 class PerceiverResampler(nn.Module):
     """``(B, v, dim)`` features -> ``(B, num_latents, dim_inner)`` tokens."""
 
@@ -62,13 +85,12 @@ class PerceiverResampler(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.latents = nn.Parameter(torch.empty(cfg.num_latents, d, **kw))
         self.layers = nn.ModuleList(
-            nn.ModuleList([
+            PerceiverBlock(
                 PerceiverAttention(cfg, **kw),
                 nn.Sequential(empty(nn.LayerNorm, d, **kw),
                               empty(nn.Linear, d, ff, bias=False, **kw),
                               nn.GELU(),
-                              empty(nn.Linear, ff, d, bias=False, **kw)),
-            ])
+                              empty(nn.Linear, ff, d, bias=False, **kw)))
             for _ in range(cfg.depth))
         self.norm = empty(nn.LayerNorm, d, **kw)
         self.projection = empty(nn.Linear, d, cfg.dim_inner, **kw)
@@ -85,22 +107,13 @@ class PerceiverResampler(nn.Module):
         init_normal(gen, 0.02, self.projection.weight)
         init_const(0.0, self.projection.bias)
 
-    def _block(self, attn, ff, x, latents, policy: Policy) -> torch.Tensor:
-        cast = policy.cast
-        latents = latents + attn(x, latents, self.cfg, policy)
-        f = layernorm(cast(ff[0].weight), cast(ff[0].bias), latents)
-        f = linear(ff[1], f, policy)
-        f = F.gelu(f.float()).to(f.dtype)
-        return latents + linear(ff[3], f, policy)
-
     def forward(self, features: torch.Tensor, policy: Policy = BF16,
                 remat: bool = False, remat_policy: str = "full") -> torch.Tensor:
         """``remat`` recomputes each block in the backward (as the decoder)."""
         cast = policy.cast
         x = features.to(policy.compute_dtype)
         latents = cast(self.latents).expand(x.shape[0], -1, -1)
-        for attn, ff in self.layers:
-            latents = remat_call(remat, remat_policy, self._block, attn, ff, x, latents,
-                                 policy)
+        for block in self.layers:
+            latents = remat_call(remat, remat_policy, block, x, latents, self.cfg, policy)
         latents = layernorm(cast(self.norm.weight), cast(self.norm.bias), latents)
         return linear(self.projection, latents, policy)

@@ -156,9 +156,14 @@ class Phi3DecoderLayer(nn.Module):
             })
 
     def forward(self, x, cos, sin, cfg: Phi3Config, spec, kv_valid, q_offset,
-                step: _CacheStep | None, li: int, policy: Policy, use_flash: bool):
+                step: _CacheStep | None, li: int, policy: Policy, use_flash: bool,
+                tp=None, seq=None):
         """Returns (the layer's output, the MoE aux loss or None for a dense
-        MLP)."""
+        MLP). ``tp``: this rank's :class:`~aki_torch.parallel.tensor.TensorParallel`
+        (``cfg`` then holds the local head and column counts, and the
+        row-parallel products are summed over the group); ``seq``: its
+        :class:`~aki_torch.ops.ring_attention.SeqShard` (x holds the local
+        rows)."""
         b, t, _ = x.shape
         nh, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         eps = cfg.rms_norm_eps
@@ -207,6 +212,8 @@ class Phi3DecoderLayer(nn.Module):
             else:
                 k_att, v_att = ck.to(q.dtype), cv.to(q.dtype)
 
+        if attn is None and seq is not None:
+            attn = seq.attend(q, k_att, v_att)
         if attn is None:
             if use_flash and t > 1 and is_quantized(att["qkv_proj"]):
                 attend = decoder_attention_bf16p
@@ -214,7 +221,8 @@ class Phi3DecoderLayer(nn.Module):
                 attend = flash_mma_attention if use_flash else dense_attention
             attn = attend(q, k_att, v_att, spec=spec, kv_valid=kv_valid_att,
                           q_offset=q_offset)
-        x = x + project(att["o_proj"], attn.reshape(b, t, nh * dh), policy)
+        o = project(att["o_proj"], attn.reshape(b, t, nh * dh), policy)
+        x = x + (o if tp is None else tp.all_reduce(o))
 
         if isinstance(mlp, MoEMLP):
             h2 = rmsnorm(policy.cast(self.post_attention_layernorm.weight), x, eps)
@@ -224,7 +232,8 @@ class Phi3DecoderLayer(nn.Module):
                              x, eps, probe=mlp["gate_up_proj"])
         gate, up = project(mlp["gate_up_proj"], h2, policy).chunk(2, dim=-1)
         act = silu_mul_quant_acts(gate, up, probe=mlp["down_proj"])
-        return x + project(mlp["down_proj"], act, policy), None
+        out = project(mlp["down_proj"], act, policy)
+        return x + (out if tp is None else tp.all_reduce(out)), None
 
 
 def fused_parts(cfg: Phi3Config) -> dict[int, int]:
@@ -248,6 +257,11 @@ class Phi3Model(nn.Module):
         self.layers = nn.ModuleList(Phi3DecoderLayer(cfg, device=device, dtype=dtype)
                                     for _ in range(cfg.num_layers))
         self.norm = empty(nn.RMSNorm, cfg.hidden_size, device=device, dtype=dtype)
+        # set by aki_torch.parallel.tensor.shard_tensor_parallel, which also
+        # makes ``cfg`` the rank's local head and column counts
+        self.tp = None
+        # set by aki_torch.parallel.pipeline.shard_pipeline: this rank's stage
+        self.pipe = None
 
     def forward(
         self,
@@ -265,6 +279,7 @@ class Phi3Model(nn.Module):
         live_width: int | None = None,
         cache_slots=None,
         with_aux: bool = False,
+        seq=None,
     ) -> tuple:
         """Run the stack over ``inputs_embeds`` (B, T, D).
 
@@ -278,6 +293,10 @@ class Phi3Model(nn.Module):
         cache row of each prompt row for a prefill into a wider serving
         cache (a slot of the cache's width drops the row; read on the host).
 
+        seq: this rank's :class:`~aki_torch.ops.ring_attention.SeqShard`
+        under sequence parallelism (``inputs_embeds`` and ``positions`` are
+        its rows; ``spec`` and ``kv_valid`` stay global).
+
         Returns (final-normed hidden states (B, T, D), the cache), and with
         ``with_aux`` (no cache) the f32 sum of the layers' MoE aux losses
         after them (0 for a dense decoder).
@@ -285,6 +304,13 @@ class Phi3Model(nn.Module):
         if with_aux and cache is not None:
             raise ValueError("with_aux is only tracked on the no-cache (training) path; "
                              "cached decode discards the per-layer MoE aux terms")
+        if self.pipe is not None:
+            if cache is not None or seq is not None:
+                raise ValueError("a pipeline stage runs the training forward only")
+            from ..parallel.pipeline import phi3_forward_pp
+
+            return phi3_forward_pp(self, inputs_embeds, positions, spec, kv_valid, policy,
+                                   use_flash, remat, remat_policy, with_aux)
         cfg = self.cfg
         x = inputs_embeds.to(policy.compute_dtype)
         cos, sin = rope_cos_sin(cfg.rope, positions)
@@ -305,7 +331,7 @@ class Phi3Model(nn.Module):
         for li, layer in enumerate(self.layers):
             x, layer_aux = remat_call(remat, remat_policy, layer, x, cos, sin, cfg, spec,
                                       kv_valid, q_offset, step, li, policy, use_flash,
-                                      parts=parts)
+                                      self.tp, seq, parts=parts)
             if with_aux and layer_aux is not None:
                 aux = aux + layer_aux
         x = rmsnorm(policy.cast(self.norm.weight), x, cfg.rms_norm_eps)

@@ -307,3 +307,45 @@ def flash_mma_attention_flat(
 
 
 flash_mma_attention_flat.launches = 0
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along T (dim 1) over the ``seq`` group; its transpose,
+    the backward, reduce-scatters the gradient (a sum over the ranks that
+    used each key)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        n = dist.get_world_size(group)
+        ctx.group, ctx.n = group, n
+        xt = x.transpose(0, 1).contiguous()
+        out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+        dist.all_gather_into_tensor(out, xt, group=group)
+        return out.transpose(0, 1).contiguous()      # the kernels read contiguous K/V
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        gt = g.transpose(0, 1).contiguous()
+        out = gt.new_empty((gt.shape[0] // ctx.n,) + tuple(gt.shape[1:]))
+        dist.reduce_scatter_tensor(out, gt, group=ctx.group)
+        return out.transpose(0, 1), None
+
+
+def flash_mma_attention_sp(q, k, v, shard, scale: float | None = None) -> torch.Tensor:
+    """Sequence-parallel flash MMA attention (counterpart of
+    ``flash_mma_attention_sp``, ``aki_tpu/ops/flash_mma.py:804-868``): q, k,
+    v (B, T/n, H, D) are this rank's rows (``shard``: a
+    :class:`~aki_torch.ops.ring_attention.SeqShard`); K/V are all-gathered
+    along T and :func:`flash_mma_attention` runs on the local query rows at
+    ``q_offset = rank * T/n`` over all T keys (on CUDA tensors the forward
+    and backward kernels). The gather's backward reduce-scatters dK/dV."""
+    k_full = _GatherSeq.apply(k, shard.group)
+    v_full = _GatherSeq.apply(v, shard.group)
+    shard.seen_kv_rows.append(k_full.shape[1])
+    return flash_mma_attention(q, k_full, v_full, spec=shard.spec, kv_valid=shard.kv_valid,
+                               q_offset=shard.lo, scale=scale)
+

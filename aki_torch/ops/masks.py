@@ -55,17 +55,20 @@ def allowed_mask(
     kv_len: int,
     kv_valid: torch.Tensor | None = None,
     q_offset: torch.Tensor | int = 0,
+    kv_offset: torch.Tensor | int = 0,
 ) -> torch.Tensor:
     """Dense boolean mask ``(B, q_len, kv_len)``; True = may attend.
 
     ``q_offset`` (scalar or ``(B,)``) is the absolute position of query row
-    0; ``kv_valid`` is an optional ``(B, kv_len)`` 0/1 key validity.
+    0, ``kv_offset`` that of key 0 (a block of a sharded sequence);
+    ``kv_valid`` is an optional ``(B, kv_len)`` 0/1 key validity.
     """
     spec = spec.with_batch_dim()
     b, dev = spec.batch, spec.img_start.device
     q_pos = (torch.arange(q_len, device=dev)[None, :, None]
              + torch.as_tensor(q_offset, device=dev).to(torch.int64).expand(b)[:, None, None])
-    k_pos = torch.arange(kv_len, device=dev)[None, None, :]
+    k_pos = (torch.arange(kv_len, device=dev)[None, None, :]
+             + torch.as_tensor(kv_offset, device=dev).to(torch.int64).expand(b)[:, None, None])
     out = k_pos <= q_pos
 
     # union of per-image MMA blocks: (B, N, 1, 1) against (B, 1, q, k)

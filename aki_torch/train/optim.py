@@ -54,10 +54,33 @@ def cast_frozen_to(model: nn.Module, dtype: torch.dtype = torch.bfloat16,
     return model
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum ||t||^2) over ``tensors``, in f32, without a host sync."""
-    norms = [torch.linalg.vector_norm(t.float()) for t in tensors]
-    return torch.linalg.vector_norm(torch.stack(norms))
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage); a tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def global_norm(tensors, group=None, blocks=(), block_group=None) -> torch.Tensor:
+    """sqrt(sum ||t||^2) over ``tensors`` and ``blocks``, in f32, without a
+    host sync. Sharded tensors (DTensors) count their local shards, the
+    squares summed over ``group`` (the ranks the shards differ over: each
+    replicated copy counts once); ``blocks`` (the expert weights' blocks)
+    are summed over ``block_group`` too."""
+    norms = [torch.linalg.vector_norm(local(t).float()) for t in tensors]
+    if group is None and not blocks:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+
+    sq = torch.stack(norms).square().sum() if norms else torch.zeros(())
+    if group is not None:
+        dist.all_reduce(sq, group=group)
+    if blocks:
+        bsq = torch.stack([torch.linalg.vector_norm(local(t).float()) for t in blocks])
+        bsq = bsq.square().sum()
+        if group is not None:
+            dist.all_reduce(bsq, group=group)
+        dist.all_reduce(bsq, group=block_group)
+        sq = sq.to(bsq.device) + bsq
+    return sq.sqrt()
 
 
 class AdamWClip:
@@ -71,7 +94,13 @@ class AdamWClip:
                  weight_decay: float = 0.1, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, grad_clip: float = 1.0,
                  decay_predicate: Callable[[str], bool] = decay_everything,
-                 frozen_predicate: Callable[[str], bool] = is_frozen_path):
+                 frozen_predicate: Callable[[str], bool] = is_frozen_path,
+                 norm_group=None):
+        self.norm_group = norm_group
+        # the expert weights' blocks under the expert axis (set by the
+        # trainer): their squares are summed over the expert ranks too
+        self.blocks: set = set()
+        self.block_group = None
         self.schedule = learning_rate if callable(learning_rate) else (
             lambda _count, lr=float(learning_rate): lr)
         self.grad_clip = grad_clip
@@ -98,10 +127,16 @@ class AdamWClip:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = global_norm(grads)
+        if self.blocks:
+            blocks = [p.grad for p in self.params if p.grad is not None and id(p) in self.blocks]
+            norm = global_norm([p.grad for p in self.params if p.grad is not None
+                                and id(p) not in self.blocks], self.norm_group, blocks,
+                               self.block_group)
+        else:
+            norm = global_norm(grads, self.norm_group)
         factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
         for g in grads:
-            g.mul_(factor.to(g.dtype))
+            local(g).mul_(factor.to(g.dtype))
         lr = float(self.schedule(self.count))
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -121,8 +156,10 @@ def make_optimizer(model: nn.Module, learning_rate: float | Schedule,
                    weight_decay: float = 0.1, b1: float = 0.9, b2: float = 0.999,
                    eps: float = 1e-8, grad_clip: float = 1.0,
                    decay_predicate: Callable[[str], bool] = decay_everything,
-                   frozen_predicate: Callable[[str], bool] = is_frozen_path) -> AdamWClip:
+                   frozen_predicate: Callable[[str], bool] = is_frozen_path,
+                   norm_group=None) -> AdamWClip:
     """AdamW over the trainable parameters; the frozen ones are switched
-    off (``requires_grad=False``) and hold no state."""
+    off (``requires_grad=False``) and hold no state. ``norm_group``: the
+    group the clip's norm sums sharded gradients over (the ``fsdp`` axis)."""
     return AdamWClip(model, learning_rate, weight_decay, b1, b2, eps, grad_clip,
-                     decay_predicate, frozen_predicate)
+                     decay_predicate, frozen_predicate, norm_group)

@@ -25,12 +25,13 @@ from ..data.loader import make_loader
 from ..data.sft.pipeline import MultiDataset, SFTDataset, batches, worker_seed
 from ..data.tokenizer import load_tokenizer
 from ..models.common import resolve_device
-from .cli import model_config, parse_args, refuse_unported, remat_policy
+from .cli import (is_main, join_group, model_config, parallel_fields, parse_args,
+                  refuse_unported, remat_policy)
 from .metrics import MetricsLogger
 from .runner import RunnerConfig, Trainer
 
 
-def runner_config(tc) -> RunnerConfig:
+def runner_config(tc, cfg=None) -> RunnerConfig:
     return RunnerConfig(
         run_dir=tc.get("run_dir", "runs/sft"),
         learning_rate=tc.get("learning_rate", 2e-5),
@@ -51,6 +52,7 @@ def runner_config(tc) -> RunnerConfig:
         host_offload=tc.get("host_offload", False),
         frozen_bf16=tc.get("frozen_bf16", False),
         moe_aux_weight=tc.get("moe_aux_weight", 0.01),
+        **parallel_fields(cfg, tc),
     )
 
 
@@ -61,9 +63,9 @@ def run(cfg, device="cuda") -> Trainer:
     refuse_unported(cfg, tc)
     tokenizer = load_tokenizer(cfg.get("tokenizer_path"))
     model_cfg = model_config(cfg, tokenizer)
-    run_cfg = runner_config(tc)
+    run_cfg = runner_config(tc, cfg)
     trainer = Trainer(model_cfg, run_cfg, device=device, metrics=MetricsLogger(
-        run_cfg.run_dir, use_tensorboard=tc.get("tensorboard", True)))
+        run_cfg.run_dir, use_tensorboard=tc.get("tensorboard", True)) if is_main() else None)
 
     max_length = tc.get("max_length", 512)
     rng = random.Random(worker_seed(run_cfg.seed, 0, 0))
@@ -105,13 +107,14 @@ def run(cfg, device="cuda") -> Trainer:
             print("warning: epoch produced no batches; stopping")
             break
     trainer.finish(epoch)
-    print(f"done at step {trainer.state.step}")
+    if is_main():
+        print(f"done at step {trainer.state.step}")
     return trainer
 
 
 def main(argv=None) -> Trainer:
     args = parse_args(argv, "AKI instruction fine-tuning on a dataset mixture")
-    return run(load_config(args.config, args.overrides), args.device)
+    return run(load_config(args.config, args.overrides), join_group(args.device))
 
 
 if __name__ == "__main__":

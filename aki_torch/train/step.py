@@ -21,6 +21,12 @@
 
 The port updates the model and the optimizer in place instead of returning
 a new state.
+
+Sharded (:class:`StepParallel`): the loss each rank backpropagates is its
+share of the global mean (the count of valid labels summed over the batch
+and sequence ranks) times the number of batch ranks, whose gradients FSDP2
+averages; gradients are summed over the sequence ranks; the clip's norm
+is taken over the shards; the logged loss is the shares' sum.
 """
 
 from __future__ import annotations
@@ -29,11 +35,25 @@ import dataclasses
 from collections.abc import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..models.aki import AKIModel, aki_forward
 from ..models.common import BF16, Policy
 from ..models.configs import AKIConfig
-from .optim import AdamWClip
+from .optim import AdamWClip, local
+
+
+@dataclasses.dataclass
+class StepParallel:
+    """What a sharded step reduces over: ``loss_group`` (the batch and
+    sequence ranks, ``loss_ranks`` of them), ``grad_scale`` (the number of
+    batch ranks, over which FSDP2 averages) and ``seq_group`` (the sequence
+    ranks, None without ``seq``)."""
+
+    loss_group: object
+    grad_scale: int = 1
+    seq_group: object = None
+    loss_ranks: int = 1         # ranks in loss_group: the MoE aux's share is 1/loss_ranks
 
 
 @dataclasses.dataclass
@@ -62,7 +82,8 @@ class Batch:
 
 def make_loss_fn(cfg: AKIConfig, policy: Policy, remat: bool, use_flash: bool,
                  order: str = "image_first", remat_policy: str = "full",
-                 device="cuda", host_offload: bool = False, moe_aux_weight: float = 0.01
+                 device="cuda", host_offload: bool = False, moe_aux_weight: float = 0.01,
+                 parallel: StepParallel | None = None
                  ) -> Callable[[AKIModel, Batch], torch.Tensor]:
     if host_offload:
         remat, remat_policy = True, "full"
@@ -71,14 +92,19 @@ def make_loss_fn(cfg: AKIConfig, policy: Policy, remat: bool, use_flash: bool,
         out = aki_forward(model, batch.input_ids, batch.images, batch.attn_valid,
                           labels=batch.labels, policy=policy, use_flash=use_flash,
                           order=order, device=device, remat=remat,
-                          remat_policy=remat_policy)
+                          remat_policy=remat_policy,
+                          loss_group=None if parallel is None else parallel.loss_group,
+                          seq_group=None if parallel is None else parallel.seq_group)
         loss = out.loss
         if batch.loss_weight is not None:
             # the per-dataset multiplier scales the CE loss only: the
             # router's balance pressure does not vary by dataset
             loss = loss * batch.loss_weight
         if out.aux is not None:
-            loss = loss + moe_aux_weight * out.aux
+            # under a split token set every rank holds the same global aux:
+            # its share of the summed loss is 1/loss_ranks
+            aux = out.aux if parallel is None else out.aux / parallel.loss_ranks
+            loss = loss + moe_aux_weight * aux
         return loss
     return loss_fn
 
@@ -95,13 +121,15 @@ def make_train_step(
     device="cuda",
     host_offload: bool = False,
     moe_aux_weight: float = 0.01,
+    parallel: StepParallel | None = None,
 ) -> Callable[[TrainState, Batch | tuple[Batch, ...]], dict]:
     """Build ``train_step(state, batch) -> {"loss", "grad_norm"}`` (0-d
     tensors on the device; nothing syncs with the host). ``batch`` holds
     ``grad_accum`` stacked micro-batches when ``grad_accum > 1``; a tuple of
     such batches is one step over several datasets."""
     loss_fn = make_loss_fn(cfg, policy, remat, use_flash, order, remat_policy, device,
-                           host_offload, moe_aux_weight)
+                           host_offload, moe_aux_weight, parallel)
+    grad_scale = 1 if parallel is None else parallel.grad_scale
 
     def accumulate(model, batch: Batch) -> torch.Tensor:
         """Backward of one dataset's (mean over micro-batches) loss into
@@ -110,7 +138,7 @@ def make_train_step(
         total = None
         for micro in micros:
             loss = loss_fn(model, micro) * loss_scale / grad_accum
-            loss.backward()
+            (loss * grad_scale if grad_scale != 1 else loss).backward()
             total = loss.detach() if total is None else total + loss.detach()
         return total
 
@@ -118,8 +146,21 @@ def make_train_step(
         state.optimizer.zero_grad()
         batches = batch if isinstance(batch, tuple) else (batch,)
         loss = sum(accumulate(state.model, b) for b in batches) / len(batches)
+        if parallel is not None:
+            sync_grads(state.optimizer.params, parallel.seq_group)
+            dist.all_reduce(loss, group=parallel.loss_group)
         grad_norm = state.optimizer.step()
         state.step += 1
         return {"loss": loss / loss_scale, "grad_norm": grad_norm}
 
     return train_step
+
+
+def sync_grads(params, group) -> None:
+    """Sum the gradients over ``group`` (the sequence ranks: each holds the
+    gradient of its rows' share of the loss)."""
+    if group is None:
+        return
+    for p in params:
+        if p.grad is not None:
+            dist.all_reduce(local(p.grad), group=group)

@@ -154,7 +154,19 @@ Phases, each fatal on failure:
      (8 gated blocks of 8 heads x 64, ff_mult 4, before every 4th layer) on
      2 rows of 512 text tokens with two <image> tokens each and the tokens
      of 4 images: at init equal to the plain decoder, then with the gates
-     open phase 7's gates on the next-token loss (91 / 32 / 32 launches).
+     open phase 7's gates on the next-token loss (91 / 32 / 32 launches);
+ 17. the multi-device code on one card: a 1-rank NCCL group, then the
+     Trainer as phase 8 runs it (same rows, seed and settings) with
+     fsdp_strategy "full" (ZeRO-3) and "grad_op" (ZeRO-2) over the 1-rank
+     mesh (FSDP2 units per tower layer, Perceiver block and decoder layer,
+     bf16 gathers, the clip's norm over shards), ZERO_STEPS steps each held
+     to phase 8's under phase 7's loss tolerance with phase 8's launches;
+     then host_offload_params without the group: every parameter and AdamW
+     moment on a pinned host tensor between steps, losses and grad norms
+     bitwise phase 8's, H2D / D2H ms, device memory between steps, the
+     step's peak and the host's RSS. Phase 6 also runs the sequence-parallel
+     all-gather route's shape: the interleaved row padded to a multiple of
+     SP_SEQ keys, the last shard's query rows at its offset over all keys.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -165,6 +177,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -216,6 +229,8 @@ LOSS_RTOL = 1e-2
 # attention, the kernel's 1 - cosine is at most twice the plain path's.
 GRAD_COSINE_MIN = 0.99
 TRAIN_STEPS = 4
+SP_SEQ = 4                # phase 6's sequence-parallel case: the last of 4 shards
+ZERO_STEPS = 3            # phase 17's steps per run, held to phase 8's first three
 # Fused quantize kernels against their plain versions on the same bf16 rows:
 # both compute h in f32 but sum the row statistics in another order (and the
 # kernel may contract a multiply-add), so a value at a rounding tie of h / s
@@ -1243,8 +1258,8 @@ class RoutingPin:
 
         real, calls, flips = moe.route, [0], []
 
-        def pinned(layer, xf, cfg):
-            r = real(layer, xf, cfg)
+        def pinned(layer, xf, cfg, *args, **kwargs):
+            r = real(layer, xf, cfg, *args, **kwargs)
             if mode == "record":
                 self.log.append(r.top_idx)
                 return r
@@ -3579,6 +3594,155 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
+def host_rss_gb() -> float:
+    """This process's resident set on the host, GB (/proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def zero_and_offload(cfg, batches, train, card: str) -> dict:
+    """Phase 17: the multi-device code on one card. A 1-rank NCCL group,
+    then the Trainer as phase 8 runs it (the same rows, seed and settings)
+    with ``fsdp_strategy`` ``full`` (ZeRO-3) and ``grad_op`` (ZeRO-2) over
+    the 1-rank mesh: the FSDP2 units, their hooks, the bf16 gather and the
+    clip's norm over shards run on the card. Each one's first
+    ZERO_STEPS losses and grad norms are held to phase 8's under phase 7's
+    loss tolerance, with phase 8's launches a step. Then, without the group,
+    ``host_offload_params``: between steps every parameter and AdamW moment
+    is a pinned host tensor, and the losses and grad norms are phase 8's
+    bit for bit; the H2D and D2H ms a step, the device memory between
+    steps, the step's peak and the host's RSS are printed."""
+    import socket
+
+    import torch.distributed as dist
+
+    from aki_torch.parallel.mesh import init_distributed
+    from aki_torch.train.metrics import MetricsLogger
+    from aki_torch.train.runner import RunnerConfig, Trainer
+
+    want = {"fwd": 2 * (cfg.siglip.num_layers + 2 * cfg.phi3.num_layers),
+            "dq": 2 * cfg.phi3.num_layers, "dkv": 2 * cfg.phi3.num_layers}
+    ref = train["steps"]
+    run_dir = os.path.join(ROOT, "build", "phase17_run")
+
+    def trainer(**kw):
+        return Trainer(cfg, RunnerConfig(
+            run_dir=run_dir, precision="bf16", remat=True, frozen_bf16=True, grad_accum=2,
+            warmup_steps=0, learning_rate=1e-4, total_steps=1000, checkpoint_steps=10**9,
+            log_every=1, seed=4, **kw), device="cuda",
+            metrics=MetricsLogger(run_dir, use_tensorboard=False))
+
+    def run_steps(t, label, on_step=None):
+        out = []
+        for i in range(ZERO_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            start.record()
+            t.run_epoch(iter(batches), epoch=0)
+            end.record()
+            end.synchronize()
+            rec = t.metrics.last
+            st = dict(step=rec["step"], loss=rec["training_loss"], grad_norm=rec["grad_norm"],
+                      ms=start.elapsed_time(end), launches=launch_counts(),
+                      peak_bytes=torch.cuda.max_memory_allocated(),
+                      between_bytes=torch.cuda.memory_allocated())
+            if on_step:
+                st.update(on_step(t))
+            st["loss_rel"] = abs(st["loss"] - ref[i]["loss"]) / abs(ref[i]["loss"])
+            st["grad_norm_rel"] = (abs(st["grad_norm"] - ref[i]["grad_norm"])
+                                   / abs(ref[i]["grad_norm"]))
+            log(f"{label} step {st['step']}: loss={st['loss']:.6f} (phase 8 "
+                f"{ref[i]['loss']:.6f}, rel {st['loss_rel']:.3g}) grad_norm="
+                f"{st['grad_norm']:.6f} (phase 8 {ref[i]['grad_norm']:.6f}, rel "
+                f"{st['grad_norm_rel']:.3g}) step_ms={st['ms']:.1f} peak_gb="
+                f"{st['peak_bytes'] / 1e9:.3f} between_steps_gb={st['between_bytes'] / 1e9:.3f}"
+                f" launches={st['launches']}"
+                + "".join(f" {k}={v}" for k, v in st.items() if k in ("h2d_ms", "d2h_ms",
+                                                                        "host_rss_gb")))
+            out.append(st)
+        return out
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    res = {}
+    try:
+        init_distributed("cuda")
+        log(f"phase 17: process group backend={dist.get_backend()} "
+            f"world={dist.get_world_size()}")
+        for strategy, label in (("full", "zero3"), ("grad_op", "zero2")):
+            t = trainer(fsdp_strategy=strategy)
+            from torch.distributed.fsdp import FSDPModule
+
+            units = sum(isinstance(m, FSDPModule) for m in t.model.modules())
+            sharded = sum(hasattr(p, "device_mesh") for p in t.model.parameters())
+            steps = run_steps(t, f"{label} (fsdp_strategy={strategy}, 1-rank mesh)")
+            res[label] = dict(steps=steps, fsdp_units=units, dtensor_params=sharded,
+                              n_params=sum(1 for _ in t.model.parameters()))
+            log(f"{label}: fsdp units={units} dtensor params={sharded} of "
+                f"{res[label]['n_params']}")
+            t.metrics.close()
+            del t
+            free_cuda()
+            if units != (cfg.siglip.num_layers + 1 + cfg.perceiver.depth + 1
+                         + cfg.phi3.num_layers + 1) or sharded != res[label]["n_params"]:
+                raise SystemExit(f"chip_smoke: phase 17 {label}: the model is not sharded "
+                                 "unit by unit")
+        dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    def on_host(t):
+        h2d, d2h = t.offload_ms[-1]
+        params = list(t.model.parameters())
+        moments = [v for st in t.state.optimizer.opt.state.values() for v in st.values()
+                   if isinstance(v, torch.Tensor)]
+        pinned = all(x.device.type == "cpu" and x.is_pinned() for x in params + moments)
+        return dict(h2d_ms=round(h2d, 3), d2h_ms=round(d2h, 3), host_rss_gb=round(
+            host_rss_gb(), 3), pinned=pinned, n_host_tensors=len(params) + len(moments))
+
+    try:
+        t = trainer(host_offload_params=True)
+        res["offload"] = dict(steps=run_steps(t, "host_offload_params", on_host))
+        t.metrics.close()
+        del t
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    free_cuda()
+    for label in ("zero3", "zero2"):
+        for st in res[label]["steps"]:
+            if max(st["loss_rel"], st["grad_norm_rel"]) > LOSS_RTOL:
+                raise SystemExit(f"chip_smoke: phase 17 {label} differs from phase 8")
+    for label in ("zero3", "zero2", "offload"):
+        if any(st["launches"] != want for st in res[label]["steps"]):
+            raise SystemExit(f"chip_smoke: phase 17 {label}: launches a step differ from {want}")
+    off = res["offload"]["steps"]
+    if not all(st["pinned"] for st in off):
+        raise SystemExit("chip_smoke: phase 17: the offloaded state is not pinned on the host")
+    if any(st["loss"] != r["loss"] or st["grad_norm"] != r["grad_norm"]
+           for st, r in zip(off, ref)):
+        raise SystemExit("chip_smoke: phase 17: host_offload_params changed the numbers")
+    res["launches"] = {k: sum(st["launches"][k] for label in ("zero3", "zero2", "offload")
+                              for st in res[label]["steps"]) for k in want}
+    log(card)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3800,6 +3964,18 @@ def main() -> int:
            # base-2 score spreads past 126: p that exp2 flushes to 0
            backward_case("exp2_flush_spread_d96", 2, 389, 389, 4, 4, 96, gen, rects=EDGE_RECTS_2,
                          spread=True)]
+    # the all-gather sequence-parallel route's shape: the interleaved row
+    # (six rectangles) padded to a multiple of seq=4 keys; the last shard's
+    # query rows at its offset, over all the keys
+    t_sp = -(-t_inter // SP_SEQ) * SP_SEQ
+    sp_rows = t_sp // SP_SEQ
+    sp_valid = torch.zeros(1, t_sp, dtype=ivalid.dtype, device="cuda")
+    sp_valid[:, :t_inter] = ivalid[:1]
+    bwd.append(backward_case(
+        f"sp_allgather_last_shard_{sp_rows}x{t_sp}", 1, sp_rows, t_sp, ph.num_heads,
+        ph.num_kv_heads, ph.head_dim, gen,
+        spec=MMASpec(*(x[:1] for x in (ispec.img_start, ispec.txt_start, ispec.txt_end))),
+        kv_valid=sp_valid, q_offset=(SP_SEQ - 1) * sp_rows))
     for c in bwd:
         if c["name"].startswith("big_grid") and min(c["block_rows"].values()) <= 64:
             raise SystemExit(f"chip_smoke: backward case {c['name']} ran 64-row blocks")
@@ -3847,6 +4023,13 @@ def main() -> int:
     v_launch = {k: variants["train"]["launches"][k] + variants["flamingo"]["launches"][k]
                 for k in ("fwd", "dq", "dkv")}
     v_launch["fwd"] += variants["generate"]["launches"]
+    free_cuda()
+
+    # 17. the multi-device code on one card: ZeRO-3 / ZeRO-2 over a 1-rank
+    # group, host offload of the state
+    zero = zero_and_offload(cfg, batches, train, card)
+    for k in ("fwd", "dq", "dkv"):
+        v_launch[k] += zero["launches"][k]
 
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
@@ -3872,7 +4055,8 @@ def main() -> int:
                              "training_clis": clis["launches"]["fwd"],
                              "moe_train": variants["train"]["launches"]["fwd"],
                              "moe_generate": variants["generate"]["launches"],
-                             "flamingo": variants["flamingo"]["launches"]["fwd"]},
+                             "flamingo": variants["flamingo"]["launches"]["fwd"],
+                             "zero_and_offload": zero["launches"]["fwd"]},
         "max_abs_err": max([c["max_abs_err"] for c in cases + k1_b48]
                            + [c["fwd_max_abs_err"] for c in bwd]),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3898,7 +4082,8 @@ def main() -> int:
         "launches_by_path": {"train": train_launches[kn],
                              "training_clis": clis["launches"][kn],
                              "moe_train": variants["train"]["launches"][kn],
-                             "flamingo": variants["flamingo"]["launches"][kn]},
+                             "flamingo": variants["flamingo"]["launches"][kn],
+                             "zero_and_offload": zero["launches"][kn]},
         "max_abs_err": max(c[g]["max_abs_err"] for c in bwd
                            for g in (("dq",) if kn == "dq" else ("dk", "dv"))),
         "ms": tb[f"{kn}_ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb[f"{kn}_bound_ms"],
@@ -3920,7 +4105,7 @@ def main() -> int:
         "note": bwd_note,
     } for kn in ("dq", "dkv")],
         "backward_cases": bwd, "whole_model": grads, "whole_model_interleaved": grads_inter,
-        "training_clis": clis, "moe_and_flamingo": variants,
+        "training_clis": clis, "moe_and_flamingo": variants, "zero_and_offload": zero,
         "train": {k: train[k] for k in ("steps", "peak_bytes", "tokens_per_step")}}
     int8_runs = [r["launches"] for r in int8_gen["requests"]] + [serve["launches"]]
     k4 = dec_cases[0]

@@ -108,6 +108,39 @@ def test_lenient_restore_and_resume(tmp_path):
         == (0, 0, 0)
 
 
+def test_restore_skips_only_another_optimizer(tmp_path):
+    """A saved optimizer state of other groups keeps the fresh one; a state
+    that fits is loaded whole, or the restore raises."""
+    first = trainer(tmp_path, warmup_steps=0, log_every=1, checkpoint_steps=2)
+    first.run_epoch(iter([batch(1), batch(2)]), epoch=0)
+    blob = torch.load(CheckpointManager(str(tmp_path)).latest(), weights_only=False)
+    adamw = blob["optimizer_state_dict"]["adamw"]
+
+    fresh, _ = CheckpointManager(str(tmp_path)).restore(new_state(seed=11))
+    assert fresh.optimizer.count == 2
+    names = {id(p): n for n, p in fresh.model.named_parameters()}
+    order = [names[id(p)] for g in fresh.optimizer.opt.param_groups for p in g["params"]]
+    live = {names[id(p)]: st for p, st in fresh.optimizer.opt.state.items()}
+    assert set(live) == {order[i] for i in adamw["state"]}
+    for i, st in adamw["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(live[order[i]][k], st[k]), (order[i], k)
+
+    other = tmp_path / "other"
+    other.mkdir()
+    adamw["param_groups"][0]["params"].pop()            # a group of another size
+    torch.save(blob, other / "checkpoint_0_2.pt")
+    fresh, _ = CheckpointManager(str(other)).restore(new_state(seed=11))
+    assert (fresh.step, fresh.optimizer.count, len(fresh.optimizer.opt.state)) == (2, 0, 0)
+
+    adamw["param_groups"][0]["params"].append(len(order) - 1)
+    first_moment = min(adamw["state"])
+    adamw["state"][first_moment]["exp_avg"] = torch.zeros(3)   # fits, but broken
+    torch.save(blob, other / "checkpoint_0_2.pt")
+    with pytest.raises(ValueError, match="a moment of"):
+        CheckpointManager(str(other)).restore(new_state(seed=11))
+
+
 def test_port_checkpoint_loads_into_jax(tmp_path):
     """A port checkpoint read by the JAX importer (with the tower added, as
     an imported run dir carries it) gives the port's logits."""

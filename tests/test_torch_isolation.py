@@ -28,6 +28,9 @@ TRAINING_MODULES = (
     "aki_torch.data.synthetic", "aki_torch.data.sft.parsers", "aki_torch.data.sft.templatizer",
     "aki_torch.data.sft.pipeline", "aki_torch.train.cli", "aki_torch.train.pretrain",
     "aki_torch.train.sft")
+PARALLEL_MODULES = (
+    "aki_torch.parallel.mesh", "aki_torch.parallel.sharding", "aki_torch.parallel.fsdp",
+    "aki_torch.parallel.tensor", "aki_torch.parallel.dryrun", "aki_torch.ops.ring_attention")
 
 
 def test_port_imports_neither_jax_nor_aki_tpu():
@@ -36,7 +39,7 @@ def test_port_imports_neither_jax_nor_aki_tpu():
             "aki_torch.models.quant", "aki_torch.ops.fused_quant",
             "aki_torch.ops.decode_attention", "aki_torch.ops.flash_mma_q8",
             "aki_torch.models.moe", "aki_torch.models.flamingo",
-            *CONSUMER_MODULES, *TRAINING_MODULES} <= set(modules)
+            *CONSUMER_MODULES, *TRAINING_MODULES, *PARALLEL_MODULES} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -300,5 +300,8 @@ def test_trainer_raises_without_a_card():
         pytest.skip("this host has a CUDA device: the default device is real")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(CFG, RunnerConfig())
-    with pytest.raises(TypeError):
-        RunnerConfig(mesh=None)          # multi-device fields are not ported
+    # without a process group, a mesh of more than one device raises
+    from aki_torch.parallel.mesh import MeshConfig
+
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
+        Trainer(CFG, RunnerConfig(mesh=MeshConfig(fsdp=2)), device="cpu")
