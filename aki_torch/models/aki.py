@@ -14,6 +14,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..parallel.tensor import column_product
 from .common import (BF16, Policy, init_const, init_norm, init_normal,
                      resolve_device)
 from .configs import AKIConfig
@@ -123,15 +124,18 @@ def lm_logits(model: AKIModel, hidden: torch.Tensor, policy: Policy = BF16) -> t
     """Logits of ``hidden`` through the decoupled head; a head quantized by
     :func:`~aki_torch.models.quant.quantize_params` (``lm_head.quant``)
     goes through :func:`~aki_torch.models.quant.mm`, its bias and the extra
-    head stay float."""
+    head stay float. Under tensor parallelism (``lm_head.tp``) every rank
+    returns the whole logits, gathered along the vocab."""
     head = model.lang_model.lm_head
     quant = getattr(head, "quant", None)
     tp = getattr(head, "tp", None)
     if tp is not None:
-        # vocab-parallel head: each rank's rows of the vocab, gathered
-        n0 = model.cfg.initial_tokenizer_len
-        base = tp.all_gather_last(hidden @ policy.cast(head.weight).T)[..., :n0]
-        base = base + head.bias[:n0].to(base.dtype)
+        # vocab-parallel head: each rank's rows of the vocab (and of the
+        # bias), a column-parallel product, gathered; the gather's backward
+        # keeps the rank's slice. The extra head is whole on every rank
+        local = column_product(hidden, policy.cast(head.weight).t(), tp)
+        local = local + head.bias.to(local.dtype)
+        base = tp.gather_last(local)[..., :model.cfg.initial_tokenizer_len]
         extra = hidden @ policy.cast(head.additional_fc.weight).T
         extra = extra + head.additional_fc.bias.to(extra.dtype)
         return torch.cat([base, extra], dim=-1)
@@ -212,7 +216,10 @@ def aki_forward(
 
     Sharded (:mod:`aki_torch.parallel`): with ``loss_group`` (the process
     group of the batch and sequence ranks) ``loss`` is this rank's share of
-    the global loss (:func:`shard_token_loss`); with ``seq_group`` the
+    the global loss (:func:`shard_token_loss`). Under tensor parallelism
+    the loss is computed on the logits gathered along the vocab, so every
+    rank of the ``tensor`` axis holds the same loss (and its ``tensor``
+    ranks are not in ``loss_group``); with ``seq_group`` the
     splice and the label shift run on the whole sequence, then the decoder,
     the head and the loss on this rank's T/n rows (``logits`` holds those).
     """

@@ -32,6 +32,14 @@ their places among those (below ``min(cap, N)``) are their slots. With the
 ``expert`` axis each rank holds E/n experts and runs them on their rows of
 its buffer, and the outputs are gathered over the expert ranks (which hold
 the same tokens).
+
+Under tensor parallelism (``MoEMLP.tp``, set by
+:func:`~aki_torch.parallel.tensor.shard_tensor_parallel`) each rank holds
+its block of every expert's inner dim (JAX's rules split ``w_gate`` /
+``w_up`` columns and ``w_down`` rows over ``tensor``): the routing is
+replicated (the tensor ranks hold the same tokens), the gate and up
+products are column-parallel and ``w_down``'s row-parallel (its partial
+outputs summed over the group).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import column_product, row_product
 from .common import empty, init_normal, product
 from .configs import MoEConfig
 
@@ -167,10 +176,10 @@ def moe_mlp(moe: MoEMLP, x: torch.Tensor, cfg: MoEConfig, dispatch: str = "scatt
     wg, wu, wd = (w.to(x.dtype) for w in (moe.w_gate, moe.w_up, moe.w_down))
     if par is not None and par.ep_size > 1:
         buf = par.experts_rows(buf)                   # this rank's experts
-    gate = torch.bmm(buf, wg)
-    up = torch.bmm(buf, wu)
+    tp = getattr(moe, "tp", None)                     # under tp the rank's inner columns
+    gate, up = column_product(buf, wg, tp), column_product(buf, wu, tp)
     h = F.silu(gate.float()).to(up.dtype) * up
-    out_buf = torch.bmm(h, wd)                        # (E, C, D)
+    out_buf = row_product(h, wd, tp)                  # (E, C, D)
     if par is not None and par.ep_size > 1:
         out_buf = par.gather_experts(out_buf)
 

@@ -9,6 +9,11 @@ projection to the LM width close it. The (latents x media) attention is a
 plain einsum here, as in JAX. Parameter names follow the reference
 checkpoint's ``vision_tokenizer.*``: ``layers.{i}.0`` is the attention,
 ``layers.{i}.1`` the FF as ``Sequential(LayerNorm, Linear, GELU, Linear)``.
+
+Under tensor parallelism (``tp``, :mod:`aki_torch.parallel.tensor`) each
+rank holds its heads of to_q and to_kv and its columns of the first FF
+product and of the projection, Megatron-style; the block stays
+differentiable.
 """
 
 from __future__ import annotations
@@ -17,8 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import column_parallel, row_parallel
 from .common import (BF16, Policy, empty, init_const, init_norm, init_normal,
-                     layernorm, linear, remat_call)
+                     layernorm, remat_call)
 from .configs import PerceiverConfig
 
 
@@ -33,15 +39,20 @@ class PerceiverAttention(nn.Module):
         self.to_kv = empty(nn.Linear, d, 2 * inner, bias=False, **kw)
         self.to_out = empty(nn.Linear, inner, d, bias=False, **kw)
 
-    def forward(self, x, latents, cfg: PerceiverConfig, policy: Policy):
+    def forward(self, x, latents, cfg: PerceiverConfig, policy: Policy, tp=None):
+        """``tp``: the Perceiver's :class:`~aki_torch.parallel.tensor.TensorParallel`
+        (the weights hold the rank's heads; to_out's partial products are
+        summed over the group)."""
         b = x.shape[0]
-        h, dh = cfg.heads, cfg.dim_head
+        h, dh = cfg.heads // (1 if tp is None else tp.size), cfg.dim_head
         cast = policy.cast
         xm = layernorm(cast(self.norm_media.weight), cast(self.norm_media.bias), x)
         ln_lat = layernorm(cast(self.norm_latents.weight),
                            cast(self.norm_latents.bias), latents)
-        q = linear(self.to_q, ln_lat, policy).reshape(b, -1, h, dh)
-        kv = linear(self.to_kv, torch.cat([xm, ln_lat], dim=1), policy)
+        kv_in = torch.cat([xm, ln_lat], dim=1)
+        q = column_parallel(self.to_q, ln_lat, policy, tp)
+        kv = column_parallel(self.to_kv, kv_in, policy, tp)
+        q = q.reshape(b, -1, h, dh)
         k, v = kv.chunk(2, dim=-1)
         k = k.reshape(b, -1, h, dh)
         v = v.reshape(b, -1, h, dh)
@@ -49,7 +60,8 @@ class PerceiverAttention(nn.Module):
         logits = logits - logits.amax(dim=-1, keepdim=True)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bhij,bjhd->bihd", probs.float(), v.float()).to(latents.dtype)
-        return linear(self.to_out, out.reshape(b, -1, h * dh), policy)
+        out = out.reshape(b, -1, h * dh)
+        return row_parallel(self.to_out, out, policy, tp)
 
 
 class PerceiverBlock(nn.Module):
@@ -65,14 +77,15 @@ class PerceiverBlock(nn.Module):
     def __iter__(self):
         return iter((self._modules["0"], self._modules["1"]))
 
-    def forward(self, x, latents, cfg: PerceiverConfig, policy: Policy) -> torch.Tensor:
+    def forward(self, x, latents, cfg: PerceiverConfig, policy: Policy,
+                tp=None) -> torch.Tensor:
         attn, ff = self
         cast = policy.cast
-        latents = latents + attn(x, latents, cfg, policy)
+        latents = latents + attn(x, latents, cfg, policy, tp)
         f = layernorm(cast(ff[0].weight), cast(ff[0].bias), latents)
-        f = linear(ff[1], f, policy)
+        f = column_parallel(ff[1], f, policy, tp)
         f = F.gelu(f.float()).to(f.dtype)
-        return latents + linear(ff[3], f, policy)
+        return latents + row_parallel(ff[3], f, policy, tp)
 
 
 class PerceiverResampler(nn.Module):
@@ -94,6 +107,8 @@ class PerceiverResampler(nn.Module):
             for _ in range(cfg.depth))
         self.norm = empty(nn.LayerNorm, d, **kw)
         self.projection = empty(nn.Linear, d, cfg.dim_inner, **kw)
+        # set by aki_torch.parallel.tensor.shard_tensor_parallel
+        self.tp = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """The JAX init: latents N(0, 1), weights N(0, 0.02), zero bias,
@@ -110,10 +125,12 @@ class PerceiverResampler(nn.Module):
     def forward(self, features: torch.Tensor, policy: Policy = BF16,
                 remat: bool = False, remat_policy: str = "full") -> torch.Tensor:
         """``remat`` recomputes each block in the backward (as the decoder)."""
-        cast = policy.cast
+        cast, tp = policy.cast, self.tp
         x = features.to(policy.compute_dtype)
         latents = cast(self.latents).expand(x.shape[0], -1, -1)
         for block in self.layers:
-            latents = remat_call(remat, remat_policy, block, x, latents, self.cfg, policy)
+            latents = remat_call(remat, remat_policy, block, x, latents, self.cfg, policy, tp)
         latents = layernorm(cast(self.norm.weight), cast(self.norm.bias), latents)
-        return linear(self.projection, latents, policy)
+        out = column_parallel(self.projection, latents, policy, tp)
+        # under tp the rank's output columns (and bias), gathered
+        return out if tp is None else tp.gather_last(out)

@@ -19,11 +19,13 @@ bf16 K/V; a decode step stores one int8 row and attends through
 ``cache_slots`` a prompt's rows go to the given rows of a wider serving
 cache. Caches are updated in place.
 
-The projections go through :func:`~aki_torch.models.quant.project`, so the
-same layer serves float and quantized (:mod:`aki_torch.models.quant`)
-weights; under quantized weights a prefill with ``use_flash`` attends
-through :func:`~aki_torch.ops.attention.decoder_attention_bf16p`, as the
-JAX package's serving prefill does.
+The projections go through :func:`~aki_torch.parallel.tensor.column_parallel`
+and :func:`~aki_torch.parallel.tensor.row_parallel` (without a tensor group
+:func:`~aki_torch.models.quant.project`), so the same layer serves float
+and quantized (:mod:`aki_torch.models.quant`) weights, cut or whole; under
+quantized weights a prefill with ``use_flash`` attends through
+:func:`~aki_torch.ops.attention.decoder_attention_bf16p`, as the JAX
+package's serving prefill does.
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ from ..ops.decode_attention import decode_attention_flat, quantize_kv_flat
 from ..ops.flash_mma import flash_mma_attention
 from ..ops.masks import MMASpec
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel.tensor import column_parallel, row_parallel
 from .common import BF16, Policy, empty, remat_call, rmsnorm
 from .configs import Phi3Config
 from .moe import MoEMLP, moe_mlp
-from .quant import is_quantized, norm_quant_acts, project, silu_mul_quant_acts
+from .quant import is_quantized, norm_quant_acts, silu_mul_quant_acts
 
 
 @dataclasses.dataclass
@@ -160,22 +163,33 @@ class Phi3DecoderLayer(nn.Module):
                 tp=None, seq=None):
         """Returns (the layer's output, the MoE aux loss or None for a dense
         MLP). ``tp``: this rank's :class:`~aki_torch.parallel.tensor.TensorParallel`
-        (``cfg`` then holds the local head and column counts, and the
-        row-parallel products are summed over the group); ``seq``: its
+        (``cfg`` then holds the local head counts; float weights hold the
+        rank's heads and columns, q|k|v and gate|up are column-parallel
+        products and o_proj and down_proj row-parallel ones; quantized
+        weights are whole, and q, k, v are sliced to the rank's heads and
+        the attention gathered back); ``seq``: its
         :class:`~aki_torch.ops.ring_attention.SeqShard` (x holds the local
         rows)."""
         b, t, _ = x.shape
         nh, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         eps = cfg.rms_norm_eps
         att, mlp = self.self_attn, self.mlp
+        quant = is_quantized(att["qkv_proj"])
+        # under tp, quantized projections stay whole (the rank slices its
+        # heads); float ones hold the rank's heads (Megatron)
+        whole = 1 if tp is None or not quant else tp.size
         # fused norm + quantize ahead of an int8 product (W8A8 serving), the
         # plain norm otherwise: norm_quant_acts decides from the weight
         h = norm_quant_acts("rms", policy.cast(self.input_layernorm.weight), None, x, eps,
                             probe=att["qkv_proj"])
-        qkv = project(att["qkv_proj"], h, policy)
-        q = qkv[..., : nh * dh].reshape(b, t, nh, dh)
-        k = qkv[..., nh * dh: (nh + nkv) * dh].reshape(b, t, nkv, dh)
-        v = qkv[..., (nh + nkv) * dh:].reshape(b, t, nkv, dh).contiguous()
+        qkv = column_parallel(att["qkv_proj"], h, policy, tp)
+        wq, wkv = nh * whole * dh, nkv * whole * dh
+        q = qkv[..., :wq].reshape(b, t, nh * whole, dh)
+        k = qkv[..., wq: wq + wkv].reshape(b, t, nkv * whole, dh)
+        v = qkv[..., wq + wkv:].reshape(b, t, nkv * whole, dh)
+        if whole > 1:
+            q, k, v = tp.heads(q), tp.heads(k), tp.heads(v)
+        v = v.contiguous()
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -215,14 +229,18 @@ class Phi3DecoderLayer(nn.Module):
         if attn is None and seq is not None:
             attn = seq.attend(q, k_att, v_att)
         if attn is None:
-            if use_flash and t > 1 and is_quantized(att["qkv_proj"]):
+            # under tp a quantized prefill attends with the flash kernel on
+            # the rank's heads, as JAX's TP route comes before its bf16-P one
+            if use_flash and t > 1 and quant and tp is None:
                 attend = decoder_attention_bf16p
             else:
                 attend = flash_mma_attention if use_flash else dense_attention
             attn = attend(q, k_att, v_att, spec=spec, kv_valid=kv_valid_att,
                           q_offset=q_offset)
-        o = project(att["o_proj"], attn.reshape(b, t, nh * dh), policy)
-        x = x + (o if tp is None else tp.all_reduce(o))
+        attn = attn.reshape(b, t, nh * dh)
+        if whole > 1:
+            attn = tp.gather_last(attn)
+        x = x + row_parallel(att["o_proj"], attn, policy, tp)
 
         if isinstance(mlp, MoEMLP):
             h2 = rmsnorm(policy.cast(self.post_attention_layernorm.weight), x, eps)
@@ -230,10 +248,9 @@ class Phi3DecoderLayer(nn.Module):
             return x + out, aux
         h2 = norm_quant_acts("rms", policy.cast(self.post_attention_layernorm.weight), None,
                              x, eps, probe=mlp["gate_up_proj"])
-        gate, up = project(mlp["gate_up_proj"], h2, policy).chunk(2, dim=-1)
+        gate, up = column_parallel(mlp["gate_up_proj"], h2, policy, tp).chunk(2, dim=-1)
         act = silu_mul_quant_acts(gate, up, probe=mlp["down_proj"])
-        out = project(mlp["down_proj"], act, policy)
-        return x + (out if tp is None else tp.all_reduce(out)), None
+        return x + row_parallel(mlp["down_proj"], act, policy, tp), None
 
 
 def fused_parts(cfg: Phi3Config) -> dict[int, int]:

@@ -159,13 +159,13 @@ class ExpertShards:
     rank: int
     size: int
 
-    def gather(self, t: torch.Tensor) -> torch.Tensor:
+    def gather(self, t: torch.Tensor, name: str = "") -> torch.Tensor:
         """The whole (E, ...) tensor of this rank's block (collective)."""
         out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))
         dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
         return out
 
-    def local(self, full: torch.Tensor) -> torch.Tensor:
+    def local(self, full: torch.Tensor, name: str = "") -> torch.Tensor:
         return full.chunk(self.size)[self.rank]
 
 

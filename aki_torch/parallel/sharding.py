@@ -15,12 +15,14 @@ and in its ``(out, in)`` weight layout, so that a JAX ``(in, out)`` spec
 
 The port keeps HF Phi-3's fused ``qkv_proj`` (q | k | v rows) and
 ``gate_up_proj`` (gate | up rows) where JAX keeps ``wq``, ``wk``, ``wv``,
-``w_gate``, ``w_up`` apart. A fused weight's ``tensor`` dim is split part by
+``w_gate``, ``w_up`` apart, and the Perceiver's ``to_kv`` (k | v rows) as
+JAX does. A fused weight's ``tensor`` dim is split part by
 part (:func:`parts_for_path`): rank r holds its heads' q, k and v, and its
 columns of gate and up, never a slice across a part boundary.
 
 What uses the table: the tensor-parallel split (:mod:`aki_torch.parallel.tensor`)
-takes each weight's ``tensor`` dim from it. FSDP2 (:func:`aki_torch.parallel.fsdp.shard_model`)
+takes each weight's ``tensor`` dim from it (a column-parallel product's
+bias goes with its rows). FSDP2 (:func:`aki_torch.parallel.fsdp.shard_model`)
 shards every parameter of a unit on dim 0 and all-gathers whole units, so
 the ``fsdp`` dim of a rule is a storage choice that changes no result there.
 """
@@ -82,13 +84,15 @@ PARAM_RULES: list[tuple[str, Spec]] = [
 
 def _fused_rows(cfg: AKIConfig) -> list[tuple[str, tuple[int, ...]]]:
     """The fused weights' part sizes along their ``tensor`` dim (dim 0):
-    q | k | v rows and gate | up rows."""
+    q | k | v rows, gate | up rows and the Perceiver's k | v rows."""
     p = cfg.phi3
+    inner = cfg.perceiver.dim_head * cfg.perceiver.heads
     return [(_LAYER + r"self_attn\.qkv_proj\.weight$",
              (p.num_heads * p.head_dim, p.num_kv_heads * p.head_dim,
               p.num_kv_heads * p.head_dim)),
             (_LAYER + r"mlp\.gate_up_proj\.weight$",
-             (p.intermediate_size, p.intermediate_size))]
+             (p.intermediate_size, p.intermediate_size)),
+            (_PER + r"0\.to_kv\.weight$", (inner, inner))]
 
 
 def spec_for_path(name: str, rules=None) -> Spec:

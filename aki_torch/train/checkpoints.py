@@ -17,11 +17,13 @@ stored with ``torch.save`` in the reference's own layout).
   fits is loaded or the restore raises.
 
 A sharded model saves the same file: every rank gathers each sharded
-parameter and moment (a collective; expert blocks over the expert ranks,
-a pipeline stage's layers to the first stage), rank 0 (``is_main``)
-writes, the moments indexed in the whole model's optimizer order. Every
-rank reads the file and keeps its own shards, so a run dir written at one
-mesh restores at another (fsdp=2 to one device and back).
+parameter and moment (a collective; ``tensor`` blocks over the tensor
+ranks, part by part for the fused q|k|v and gate|up, expert blocks over
+the expert ranks, a pipeline stage's layers to the first stage), rank 0
+(``is_main``) writes, the moments indexed in the whole model's optimizer
+order. Every rank reads the file and keeps its own blocks and shards, so
+a run dir written at one mesh restores at another (fsdp=2, tensor=2 or
+both to one device and back).
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class CheckpointManager:
     def save(self, state: TrainState, epoch: int, step: int | None = None,
              include_frozen: bool = False) -> Path:
         step = state.step if step is None else step
-        shards = getattr(state.model, "expert_shards", None)
+        shards = model_shards(state.model)
         pipe = stage_of(state.model)
         # every rank gathers (a collective); the writer, and a pipeline
         # stage sending its layers to it, keep a host copy
@@ -129,7 +131,7 @@ class CheckpointManager:
         if opt is not None and fits(opt, groups):
             index = {n: i for i, n in enumerate(n for g in groups for n in g)}
             params = state.optimizer.params
-            shards = getattr(state.model, "expert_shards", None)
+            shards = model_shards(state.model)
             names = {id(p): n for n, p in state.model.named_parameters()}
             saved = opt["adamw"]["state"]
             adamw = {**state.optimizer.state_dict()["adamw"], "state": {
@@ -160,7 +162,7 @@ def load_weights(model: torch.nn.Module, weights: dict[str, torch.Tensor]) -> No
     dtype and device), leniently: a key the model lacks, or one whose shape
     differs, is skipped and the live value kept."""
     live = model.state_dict()
-    shards = getattr(model, "expert_shards", None)
+    shards = model_shards(model)
     with torch.no_grad():
         for k, v in weights.items():
             v = block(v, shards, k)
@@ -210,20 +212,32 @@ def merge_stages(local: dict, pipe) -> dict:
     return out
 
 
+def model_shards(model) -> tuple:
+    """The block layouts of ``model``'s weights, in the order a whole
+    tensor is cut: the expert blocks (dim 0), then the ``tensor`` blocks."""
+    return tuple(s for s in (getattr(model, "expert_shards", None),
+                             getattr(model, "tensor_shards", None)) if s is not None)
+
+
 def whole(t: torch.Tensor, shards, name: str, gather: bool = True) -> torch.Tensor:
     """A parameter (or moment) of ``name`` whole: gathered over its shards
-    (collective), and over the expert ranks for an expert weight's block."""
+    (collective), then over the tensor ranks for a weight's ``tensor``
+    block (part by part for a fused one) and over the expert ranks for an
+    expert weight's block."""
     t = full_tensor(t)
-    if gather and shards is not None and name in shards.names:
-        t = shards.gather(t)
+    if gather:
+        for s in reversed(shards or ()):
+            if name in s.names:
+                t = s.gather(t, name)
     return t
 
 
 def block(full: torch.Tensor, shards, name: str) -> torch.Tensor:
-    """This rank's expert block of a whole expert weight; other tensors as
-    they are."""
-    if shards is not None and name in shards.names:
-        return shards.local(full)
+    """This rank's block of a whole weight: its experts, then its
+    ``tensor`` block; other tensors as they are."""
+    for s in shards or ():
+        if name in s.names:
+            full = s.local(full, name)
     return full
 
 

@@ -8,9 +8,8 @@ The JAX CLIs' YAML keys are read the same way. ``mesh`` (a
 ``host_offload_params`` and ``pp_microbatches`` reach the runner; under
 ``torchrun`` the CLI joins the process group first
 (:func:`~aki_torch.parallel.mesh.init_distributed`) and every rank reads the
-same data, keeping its rows of each batch. Training over the ``tensor``
-axis raises ``NotImplementedError`` naming ROADMAP Queue 1 item 10 rather
-than being ignored. ``moe_aux_weight`` is read into the runner, as in JAX,
+same data, keeping its rows of each batch (the ``tensor`` ranks the same
+rows). ``moe_aux_weight`` is read into the runner, as in JAX,
 though the CLIs build the dense model, as JAX's do. One key is not read:
 ``accum_unroll`` unrolls the JAX step's compiled accumulation scan, and the
 loop here is eager (ROADMAP Queue 3). ``host_offload`` is read: the
@@ -80,17 +79,10 @@ def is_main() -> bool:
 def refuse_unported(cfg, tc) -> None:
     """Raise, before anything is loaded, on what the trainer would refuse:
     a mesh that needs more devices than the process group has (ValueError;
-    JAX's), a bad ``fsdp_strategy`` (ValueError) and the multi-device mode
-    not ported yet, training over the ``tensor`` axis (NotImplementedError
-    naming ROADMAP Queue 1 item 10)."""
+    JAX's) and a bad ``fsdp_strategy`` (ValueError)."""
     from ..parallel.fsdp import check_strategy
     from ..parallel.mesh import resolve_axis_sizes
 
-    mesh = mesh_config(cfg)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    sizes = dict(zip(MESH_AXES, resolve_axis_sizes(mesh, world)))
-    if sizes["tensor"] > 1:
-        raise NotImplementedError(
-            f"mesh tensor={sizes['tensor']}: training over the tensor axis is not ported "
-            "(ROADMAP Queue 1 item 10)")
+    resolve_axis_sizes(mesh_config(cfg), world)
     check_strategy(tc.get("fsdp_strategy", "full"))

@@ -59,27 +59,34 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def global_norm(tensors, group=None, blocks=(), block_group=None) -> torch.Tensor:
-    """sqrt(sum ||t||^2) over ``tensors`` and ``blocks``, in f32, without a
-    host sync. Sharded tensors (DTensors) count their local shards, the
-    squares summed over ``group`` (the ranks the shards differ over: each
-    replicated copy counts once); ``blocks`` (the expert weights' blocks)
-    are summed over ``block_group`` too."""
+def global_norm(tensors, group=None, blocks=None) -> torch.Tensor:
+    """sqrt(sum ||t||^2) over ``tensors``, in f32, without a host sync.
+    Sharded tensors (DTensors) count their local shards, the squares summed
+    over ``group`` (the ranks the shards differ over: each replicated copy
+    counts once). ``blocks`` maps a tuple of process groups to the
+    tensors that are blocks of a whole held over those groups as well (a
+    weight's ``tensor`` block, an expert weight's experts, a pipeline
+    stage's layers): their squares are summed over each of them too. Every
+    rank passes the same keys, in the same order."""
     norms = [torch.linalg.vector_norm(local(t).float()) for t in tensors]
     if group is None and not blocks:
         return torch.linalg.vector_norm(torch.stack(norms))
     import torch.distributed as dist
 
+    def squares(ts):
+        if not ts:
+            return torch.zeros((), device=tensors[0].device if tensors else None)
+        return torch.stack([torch.linalg.vector_norm(local(t).float()) for t in ts]
+                           ).square().sum()
+
     sq = torch.stack(norms).square().sum() if norms else torch.zeros(())
+    for groups, ts in (blocks or {}).items():
+        bsq = squares(ts)
+        for g in groups:
+            dist.all_reduce(bsq, group=g)
+        sq = sq.to(bsq.device) + bsq
     if group is not None:
         dist.all_reduce(sq, group=group)
-    if blocks:
-        bsq = torch.stack([torch.linalg.vector_norm(local(t).float()) for t in blocks])
-        bsq = bsq.square().sum()
-        if group is not None:
-            dist.all_reduce(bsq, group=group)
-        dist.all_reduce(bsq, group=block_group)
-        sq = sq.to(bsq.device) + bsq
     return sq.sqrt()
 
 
@@ -97,10 +104,9 @@ class AdamWClip:
                  frozen_predicate: Callable[[str], bool] = is_frozen_path,
                  norm_group=None):
         self.norm_group = norm_group
-        # the expert weights' blocks under the expert axis (set by the
-        # trainer): their squares are summed over the expert ranks too
-        self.blocks: set = set()
-        self.block_group = None
+        # id(param) -> the groups its gradient is a block over besides
+        # ``norm_group`` (set by the trainer: tensor, expert, pipe)
+        self.block_groups: dict = {}
         self.schedule = learning_rate if callable(learning_rate) else (
             lambda _count, lr=float(learning_rate): lr)
         self.grad_clip = grad_clip
@@ -127,11 +133,14 @@ class AdamWClip:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params if p.grad is not None]
-        if self.blocks:
-            blocks = [p.grad for p in self.params if p.grad is not None and id(p) in self.blocks]
+        if self.block_groups:
+            keys = list(dict.fromkeys(self.block_groups.values()))
+            blocks = {k: [] for k in keys}
+            for p in self.params:
+                if p.grad is not None and id(p) in self.block_groups:
+                    blocks[self.block_groups[id(p)]].append(p.grad)
             norm = global_norm([p.grad for p in self.params if p.grad is not None
-                                and id(p) not in self.blocks], self.norm_group, blocks,
-                               self.block_group)
+                                and id(p) not in self.block_groups], self.norm_group, blocks)
         else:
             norm = global_norm(grads, self.norm_group)
         factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)

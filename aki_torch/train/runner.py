@@ -19,11 +19,19 @@ it frees device memory between steps, not within one.
 The MoE decoder routes over the global tokens and, with ``expert`` > 1,
 holds E/n experts a rank (:mod:`aki_torch.parallel.expert`).
 
-With ``pipe`` > 1 each rank is a pipeline stage
-(:mod:`aki_torch.parallel.pipeline`, ``pp_microbatches`` microbatches).
+With ``tensor`` > 1 each rank holds its Megatron block of the weights
+(:mod:`aki_torch.parallel.tensor`, cut before FSDP2 shards the blocks over
+``(data, fsdp)``); the tensor ranks hold the same rows and compute the
+same loss, and the clip counts a split gradient's blocks over the tensor
+ranks and a replicated one once.
 
-Not ported (they raise, naming ROADMAP Queue 1 item 10): ``tensor`` in
-training and ``host_offload_params`` under a process group.
+With ``pipe`` > 1 each rank is a pipeline stage
+(:mod:`aki_torch.parallel.pipeline`, ``pp_microbatches`` microbatches);
+``pipe`` composes with ``data`` and ``fsdp`` only (``ValueError``, as in
+JAX).
+
+Not ported (it raises, naming ROADMAP Queue 1 item 10):
+``host_offload_params`` under a process group.
 """
 
 from __future__ import annotations
@@ -95,8 +103,6 @@ class _NoMetrics:
 
 def check_parallel(model_cfg: AKIConfig, run_cfg: RunnerConfig, sizes: dict) -> None:
     """Raise on what the sharded Trainer does not run."""
-    if sizes["tensor"] > 1:
-        raise NotImplementedError(f"training with mesh tensor={sizes['tensor']}: {UNPORTED}")
     if sizes["expert"] > 1 and model_cfg.phi3.moe is None:
         raise ValueError(f"mesh expert={sizes['expert']} needs the MoE decoder (phi3.moe)")
     if run_cfg.host_offload_params:
@@ -142,6 +148,10 @@ class Trainer:
                     p.requires_grad_(False)
             mesh = self.mesh
             loss_group = mesh.group(*BATCH_AXES, "seq")
+            if mesh.shape["tensor"] > 1:
+                from ..parallel.tensor import shard_tensor_parallel
+
+                shard_tensor_parallel(model, mesh)
             if mesh.shape["pipe"] > 1:
                 from ..parallel.pipeline import shard_pipeline
 
@@ -183,6 +193,7 @@ class Trainer:
             # a checkpoint with an fp32 tower restores into the bf16 storage
             cast_frozen_to(model)
 
+        self.parallel = parallel          # the step's groups (None on one device)
         self.step_fn = make_train_step(
             model_cfg, policy=self.policy, remat=run_cfg.remat, grad_accum=run_cfg.grad_accum,
             order=run_cfg.order, remat_policy=run_cfg.remat_policy, device=self.device,
@@ -209,17 +220,24 @@ class Trainer:
 
     def _mark_blocks(self, model) -> None:
         """Tell the clip which gradients are blocks of a whole held over
-        more ranks than their shards: the expert weights under ``expert``, a
-        pipeline stage's decoder layers under ``pipe``."""
-        opt = self.state.optimizer
-        shards = getattr(model, "expert_shards", None)
+        more ranks than their shards, and over which groups: a weight's
+        ``tensor`` block, the expert weights under ``expert`` (both for an
+        expert weight under tp), a pipeline stage's decoder layers under
+        ``pipe``. The weights the tensor ranks replicate are counted once."""
+        groups: dict[str, list] = {}
+        for attr in ("tensor_shards", "expert_shards"):
+            shards = getattr(model, attr, None)
+            if shards is not None:
+                for n in shards.names:
+                    groups.setdefault(n, []).append(shards.group)
         pipe = model.lang_model.model.pipe
-        if shards is not None:
-            opt.blocks = {id(p) for n, p in model.named_parameters() if n in shards.names}
-            opt.block_group = shards.group
-        elif pipe is not None:
-            opt.blocks = {id(p) for p in model.lang_model.model.layers.parameters()}
-            opt.block_group = pipe.group
+        if pipe is not None:
+            for n, _ in model.lang_model.model.layers.named_parameters(
+                    prefix="lang_model.model.layers"):
+                groups.setdefault(n, []).append(pipe.group)
+        self.state.optimizer.block_groups = {id(p): tuple(groups[n])
+                                             for n, p in model.named_parameters()
+                                             if n in groups}
 
     def _move_state(self, target: torch.device) -> float:
         """Move every parameter, buffer and AdamW state tensor to ``target``:

@@ -166,7 +166,22 @@ Phases, each fatal on failure:
      bitwise phase 8's, H2D / D2H ms, device memory between steps, the
      step's peak and the host's RSS. Phase 6 also runs the sequence-parallel
      all-gather route's shape: the interleaved row padded to a multiple of
-     SP_SEQ keys, the last shard's query rows at its offset over all keys.
+     SP_SEQ keys, the last shard's query rows at its offset over all keys;
+ 18. tensor parallelism on one card: a 1-rank NCCL group and a mesh whose
+     ``tensor`` axis is that rank; the model of phase 8 cut by
+     shard_tensor_parallel (the column- and row-parallel products of the
+     tower, the Perceiver and the decoder with their f32 sums over the
+     group, the vocab gather with its slice-keeping backward, the patch
+     embedding's and the projection's gathers, the clip's norm over the
+     tensor blocks) and
+     FSDP2 over the same group, trained as phase 8 for ZERO_STEPS steps,
+     held to phase 8's under phase 7's loss tolerance with phase 8's
+     launches; then W8A8 weights with the int8 KV cache served over the
+     group: the tower's plain-mode K1 launches (one a layer) and the int8
+     prefill's (K1 on every tower and decoder layer, not the bf16-P
+     attention of phase 11; K5 at every site), its logits against the same
+     weights' phase-11 route under phase 11's drift gate, and NEW_TOKENS
+     greedy tokens with K4's launches.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -3743,6 +3758,164 @@ def zero_and_offload(cfg, batches, train, card: str) -> dict:
     return res
 
 
+def tensor_parallel_one_card(cfg, batches, train, prompts, card: str) -> dict:
+    """Phase 18: the tensor-parallel code on one card (see the module
+    docstring). Returns the launches of its training and serving runs."""
+    import socket
+
+    import torch.distributed as dist
+
+    from aki_torch.infer.engine import generate, prefill, use_tensor_parallel
+    from aki_torch.models.aki import AKIModel, encode_vision
+    from aki_torch.models.quant import quantize_params
+    from aki_torch.parallel.mesh import Mesh, MeshConfig, init_distributed
+    from aki_torch.parallel.tensor import shard_tensor_parallel
+    from aki_torch.train.metrics import MetricsLogger
+    from aki_torch.train.runner import RunnerConfig, Trainer
+
+    want = {"fwd": 2 * (cfg.siglip.num_layers + 2 * cfg.phi3.num_layers),
+            "dq": 2 * cfg.phi3.num_layers, "dkv": 2 * cfg.phi3.num_layers}
+    ref = train["steps"]
+    run_dir = os.path.join(ROOT, "build", "phase18_run")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    res = {}
+    try:
+        init_distributed("cuda")
+        mesh = Mesh(MeshConfig(fsdp=1), "cuda")
+        log(f"phase 18: process group backend={dist.get_backend()} world="
+            f"{dist.get_world_size()} mesh={mesh.shape}")
+        # phase 8's model (the Trainer's seed), cut over the 1-rank tensor axis
+        model = AKIModel(cfg, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(4))
+        shard_tensor_parallel(model, mesh)
+        n_split = len(model.tensor_shards.names)
+        t = Trainer(cfg, RunnerConfig(
+            run_dir=run_dir, precision="bf16", remat=True, frozen_bf16=True, grad_accum=2,
+            warmup_steps=0, learning_rate=1e-4, total_steps=1000, checkpoint_steps=10**9,
+            log_every=1, seed=4, mesh=MeshConfig(fsdp=1)), model=model, device="cuda",
+            metrics=MetricsLogger(run_dir, use_tensorboard=False))
+        del model
+        blocks = sum(1 for g in t.state.optimizer.block_groups.values() if g)
+        steps = []
+        for i in range(ZERO_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            start.record()
+            t.run_epoch(iter(batches), epoch=0)
+            end.record()
+            end.synchronize()
+            rec = t.metrics.last
+            st = dict(step=rec["step"], loss=rec["training_loss"], grad_norm=rec["grad_norm"],
+                      ms=start.elapsed_time(end), launches=launch_counts(),
+                      peak_bytes=torch.cuda.max_memory_allocated())
+            st["loss_rel"] = abs(st["loss"] - ref[i]["loss"]) / abs(ref[i]["loss"])
+            st["grad_norm_rel"] = (abs(st["grad_norm"] - ref[i]["grad_norm"])
+                                   / abs(ref[i]["grad_norm"]))
+            log(f"tp train (1-rank tensor axis, FSDP2 over the same group) step {st['step']}: "
+                f"loss={st['loss']:.6f} (phase 8 {ref[i]['loss']:.6f}, rel "
+                f"{st['loss_rel']:.3g}) grad_norm={st['grad_norm']:.6f} (phase 8 "
+                f"{ref[i]['grad_norm']:.6f}, rel {st['grad_norm_rel']:.3g}) step_ms="
+                f"{st['ms']:.1f} peak_gb={st['peak_bytes'] / 1e9:.3f} launches={st['launches']}")
+            steps.append(st)
+        # where a step's time goes over the 1-rank tensor axis (phase 8's own
+        # profile beside it): device busy, idle share, the host's costliest ops
+        prof = profile_call("tp_train_step", lambda: t.run_epoch(iter(batches), epoch=0),
+                            host=True)
+        res["train"] = dict(steps=steps, tensor_blocks=n_split, clip_blocks=blocks,
+                            profile=prof)
+        t.metrics.close()
+        del t
+        free_cuda()
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+        # W8A8 + int8 KV over the same group
+        model = AKIModel(cfg, device="cuda", dtype=torch.bfloat16,
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+        model.requires_grad_(False)
+        quantize_params(model, mode="w8a8", vision=True)
+        a = prompts[0]
+        args = (a["ids"], a["image"], a["valid"], a["max_len"])
+        route_p11 = prefill(model, *args, kv_int8=True).last_logits
+        use_tensor_parallel(model, mesh)
+        zero_int8_launch_counts()
+        with torch.inference_mode():
+            encode_vision(model, a["image"])
+        torch.cuda.synchronize()
+        tower = int8_launch_counts()
+        zero_int8_launch_counts()
+        state = prefill(model, *args, kv_int8=True)
+        torch.cuda.synchronize()
+        counts = int8_launch_counts()
+        logits = state.last_logits
+        drift = logit_drift(logits, route_p11)
+        n_tower, n_dec = cfg.siglip.num_layers, cfg.phi3.num_layers
+        want_prefill = {"ln": 2 * n_tower, "gelu": n_tower, "rms": 2 * n_dec, "silu": n_dec,
+                        "decode": 0, "flash_fwd": n_tower + n_dec}
+        zero_int8_launch_counts()
+        tokens, num = generate(model, *args[:3], NEW_TOKENS, a["max_len"], kv_int8=True)
+        torch.cuda.synchronize()
+        gen_counts = int8_launch_counts()
+        want_gen = {**want_prefill, "decode": n_dec * NEW_TOKENS}
+        res["w8a8"] = dict(tower_launches=tower, prefill_launches=counts,
+                           drift_vs_phase11_route=drift,
+                           argmax_equal=bool((logits.argmax(-1)
+                                              == route_p11.argmax(-1)).all()),
+                           cache_kv_heads=int(state.cache.ks.shape[-1]),
+                           generate_launches=gen_counts, tokens=tokens[0].tolist())
+        log(f"phase 18 W8A8 over the tensor group: tower K1 launches {tower['flash_fwd']} "
+            f"(want {n_tower}); prefill launches {counts} (want {want_prefill}); logits "
+            f"against phase 11's route (bf16-P attention) drift mean/max {drift} (gate < "
+            f"{DRIFT_MEAN_MAX} / {DRIFT_MAX_MAX}) argmax_equal={res['w8a8']['argmax_equal']}; "
+            f"generate launches {gen_counts} (want {want_gen}) tokens={tokens[0].tolist()}")
+        del model, state, logits, route_p11
+        free_cuda()
+        dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(run_dir, ignore_errors=True)
+    for st in res["train"]["steps"]:
+        if max(st["loss_rel"], st["grad_norm_rel"]) > LOSS_RTOL:
+            raise SystemExit("chip_smoke: phase 18 tp training differs from phase 8")
+        if st["launches"] != want:
+            raise SystemExit(f"chip_smoke: phase 18 tp training launches a step differ from "
+                             f"{want}")
+    if res["train"]["tensor_blocks"] == 0 or res["train"]["clip_blocks"] == 0:
+        raise SystemExit("chip_smoke: phase 18: the model was not cut over the tensor axis")
+    w = res["w8a8"]
+    if w["tower_launches"]["flash_fwd"] != n_tower:
+        raise SystemExit("chip_smoke: phase 18: the tower did not attend with K1 in plain mode")
+    if counts != want_prefill:
+        raise SystemExit(f"chip_smoke: phase 18 int8 prefill launches {counts}, want "
+                         f"{want_prefill} (K1, not the bf16-P attention)")
+    if gen_counts != want_gen:
+        raise SystemExit(f"chip_smoke: phase 18 int8 generate launches {gen_counts}, want "
+                         f"{want_gen}")
+    if drift[0] >= DRIFT_MEAN_MAX or drift[1] >= DRIFT_MAX_MAX or \
+            w["cache_kv_heads"] != cfg.phi3.num_kv_heads:
+        raise SystemExit("chip_smoke: phase 18 int8 prefill logits drift past the gate")
+    if int(num[0]) != NEW_TOKENS or not all(0 <= x < cfg.output_vocab for x in w["tokens"]):
+        raise SystemExit("chip_smoke: phase 18 int8 generated tokens out of shape or range")
+    res["launches"] = {k: sum(st["launches"][k] for st in res["train"]["steps"]) for k in want}
+    res["launches"]["fwd"] += (w["tower_launches"]["flash_fwd"] + counts["flash_fwd"]
+                               + gen_counts["flash_fwd"])
+    res["int8_launches"] = {k: gen_counts[k] for k in ("ln", "gelu", "rms", "silu", "decode")}
+    log(card)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -4030,6 +4203,13 @@ def main() -> int:
     zero = zero_and_offload(cfg, batches, train, card)
     for k in ("fwd", "dq", "dkv"):
         v_launch[k] += zero["launches"][k]
+    free_cuda()
+
+    # 18. tensor parallelism on one card: training over a 1-rank tensor axis
+    # with FSDP2, then W8A8 + int8 KV served over it
+    tp_one = tensor_parallel_one_card(cfg, batches, train, int8_prompts, card)
+    for k in ("fwd", "dq", "dkv"):
+        v_launch[k] += tp_one["launches"][k]
 
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
@@ -4056,7 +4236,8 @@ def main() -> int:
                              "moe_train": variants["train"]["launches"]["fwd"],
                              "moe_generate": variants["generate"]["launches"],
                              "flamingo": variants["flamingo"]["launches"]["fwd"],
-                             "zero_and_offload": zero["launches"]["fwd"]},
+                             "zero_and_offload": zero["launches"]["fwd"],
+                             "tensor_parallel": tp_one["launches"]["fwd"]},
         "max_abs_err": max([c["max_abs_err"] for c in cases + k1_b48]
                            + [c["fwd_max_abs_err"] for c in bwd]),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4083,7 +4264,8 @@ def main() -> int:
                              "training_clis": clis["launches"][kn],
                              "moe_train": variants["train"]["launches"][kn],
                              "flamingo": variants["flamingo"]["launches"][kn],
-                             "zero_and_offload": zero["launches"][kn]},
+                             "zero_and_offload": zero["launches"][kn],
+                             "tensor_parallel": tp_one["launches"][kn]},
         "max_abs_err": max(c[g]["max_abs_err"] for c in bwd
                            for g in (("dq",) if kn == "dq" else ("dk", "dv"))),
         "ms": tb[f"{kn}_ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb[f"{kn}_bound_ms"],
@@ -4106,8 +4288,10 @@ def main() -> int:
     } for kn in ("dq", "dkv")],
         "backward_cases": bwd, "whole_model": grads, "whole_model_interleaved": grads_inter,
         "training_clis": clis, "moe_and_flamingo": variants, "zero_and_offload": zero,
+        "tensor_parallel": tp_one,
         "train": {k: train[k] for k in ("steps", "peak_bytes", "tokens_per_step")}}
-    int8_runs = [r["launches"] for r in int8_gen["requests"]] + [serve["launches"]]
+    int8_runs = ([r["launches"] for r in int8_gen["requests"]] + [serve["launches"]]
+                 + [tp_one["int8_launches"]])
     k4 = dec_cases[0]
     timing_keys = ("ms", "device_ms", "cold_device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms")
@@ -4117,7 +4301,8 @@ def main() -> int:
         "launches": sum(c["decode"] for c in int8_runs),
         "launches_by_path": {"int8_generate": sum(r["launches"]["decode"]
                                                   for r in int8_gen["requests"]),
-                             "serve": serve["launches"]["decode"]},
+                             "serve": serve["launches"]["decode"],
+                             "tensor_parallel": tp_one["int8_launches"]["decode"]},
         "max_abs_err": max(c["max_abs_err"] for c in dec_cases),
         **{k: k4["full"][k] for k in timing_keys},
         "shape": "serving cache 32x48x704x3072, all rows at 704 keys", "full": k4["full"],
@@ -4138,7 +4323,8 @@ def main() -> int:
         "launches": sum(c[op] for c in int8_runs),
         "launches_by_path": {"int8_generate": sum(r["launches"][op]
                                                   for r in int8_gen["requests"]),
-                             "serve": serve["launches"][op]},
+                             "serve": serve["launches"][op],
+                             "tensor_parallel": tp_one["int8_launches"][op]},
         "max_abs_err": max(c["max_abs_err"] for c in fq_cases[op]),
         **{k: fq_cases[op][0][k] for k in timing_keys},
         "shape": f"{fq_cases[op][0]['rows']}x{fq_cases[op][0]['d']}",

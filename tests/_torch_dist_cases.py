@@ -52,26 +52,33 @@ def numpy(t: torch.Tensor) -> np.ndarray:
 def train(trainer: Trainer, batch, steps: int = 3):
     """``steps`` steps on ``batch``: their metrics, and the (whole)
     gradients of the first."""
+    from aki_torch.train.checkpoints import model_shards, whole
+
+    shards = model_shards(trainer.model)
     metrics, grads = [], None
     for i in range(steps):
         m = trainer.step_fn(trainer.state, trainer.put_batch(batch))
         if i == 0:
-            grads = {n: numpy(p.grad) for n, p in trainer.model.named_parameters()
-                     if p.grad is not None}
+            grads = {n: numpy(whole(p.grad, shards, n))
+                     for n, p in trainer.model.named_parameters() if p.grad is not None}
         metrics.append({k: float(v) for k, v in m.items()})
     return metrics, grads
 
 
 def state_numpy(trainer: Trainer) -> dict:
-    """The whole weights and AdamW moments (gathered: every rank calls)."""
-    weights = {k: numpy(v) for k, v in trainer.model.state_dict().items()}
+    """The whole weights and AdamW moments (gathered over their shards and
+    their tensor and expert blocks: every rank calls)."""
+    from aki_torch.train.checkpoints import model_shards, whole
+
+    shards = model_shards(trainer.model)
+    weights = {k: numpy(whole(v, shards, k)) for k, v in trainer.model.state_dict().items()}
     names = {id(p): n for n, p in trainer.model.named_parameters()}
     moments = {}
     for p in trainer.state.optimizer.params:
         st = trainer.state.optimizer.opt.state.get(p, {})
         for k in ("exp_avg", "exp_avg_sq"):
             if k in st:
-                moments[f"{names[id(p)]}:{k}"] = numpy(st[k])
+                moments[f"{names[id(p)]}:{k}"] = numpy(whole(st[k], shards, names[id(p)]))
     return dict(weights=weights, moments=moments, step=trainer.state.step)
 
 
@@ -156,13 +163,19 @@ def seq_cases(rank, world, weights, batch, attn, run_dir):
     return out
 
 
-def tp_cases(rank, world, weights, prompt, requests, max_len, new):
-    """Tensor-parallel prefill (logits, the cache's heads), greedy generate
-    with a bf16 and an int8 cache, and a served drain with the int8 cache,
-    at tensor=2."""
+def tp_cases(rank, world, weights, prompt, requests, max_len, new, int8, moe):
+    """Tensor-parallel prefill (logits, the cache's heads), the vision
+    tokens, greedy generate with a bf16 and an int8 cache, and a served
+    drain with the int8 cache, at tensor=2; W8A8 weights with the int8
+    cache (``int8``: the float weights, config and prompt), with the
+    attention routes each step took; the MoE model (``moe``)."""
+    import dataclasses
+
     from aki_torch.infer import engine
     from aki_torch.infer.server import ServingEngine
+    from aki_torch.models import aki as aki_mod
     from aki_torch.models.common import F32
+    from aki_torch.models.configs import MoEConfig
     from aki_torch.parallel.mesh import Mesh
 
     mesh = Mesh(MeshConfig(fsdp=1, tensor=2), "cpu")
@@ -170,12 +183,19 @@ def tp_cases(rank, world, weights, prompt, requests, max_len, new):
     ids, images, valid = prompt
     state = engine.prefill(model, ids, images, valid, max_len, policy=F32, device="cpu",
                            tp_mesh=mesh)
+    with torch.inference_mode():
+        vision = aki_mod.encode_vision(model, torch.as_tensor(images), F32)
+    tower, per = model.vision_encoder, model.vision_tokenizer
     state8 = engine.prefill(model, ids, images, valid, max_len, policy=F32, device="cpu",
                             kv_int8=True)
     out = dict(logits=state.last_logits.numpy(), cache_k=tuple(state.cache.k.shape),
                cache8_k=tuple(state8.cache.k.shape), cache8_ks=tuple(state8.cache.ks.shape),
                qkv_rows=model.lang_model.model.layers[0].self_attn["qkv_proj"].weight.shape[0],
-               head_rows=model.lang_model.lm_head.weight.shape[0])
+               head_rows=model.lang_model.lm_head.weight.shape[0], vision=vision.numpy(),
+               tower_q_rows=tower.encoder["layers"][0].self_attn["q_proj"].weight.shape[0],
+               tower_split=tower.tp is not None,
+               perceiver_q_rows=next(iter(per.layers[0])).to_q.weight.shape[0],
+               perceiver_split=per.tp is not None)
     for kv_int8 in (False, True):
         toks, num = engine.generate(model, ids, images, valid, new, max_len, policy=F32,
                                     device="cpu", kv_int8=kv_int8, tp_mesh=mesh)
@@ -186,13 +206,63 @@ def tp_cases(rank, world, weights, prompt, requests, max_len, new):
     eng.run_until_drained()
     out["served"] = [r.result(timeout=60) for r in reqs]
     eng.close()
+
+    # W8A8 with the int8 cache: the routes each attention call took
+    from aki_torch.models import phi3, quant, siglip
+
+    routes = []
+
+    def recording(mod, name):
+        real = getattr(mod, name)
+
+        def call(*args, **kwargs):
+            routes.append((mod.__name__.rsplit(".", 1)[1], name, args[0].shape[-2]))
+            return real(*args, **kwargs)
+        return call
+
+    patched = ((phi3, "flash_mma_attention"), (phi3, "decoder_attention_bf16p"),
+               (siglip, "flash_mma_attention"), (siglip, "encoder_attention_bf16p"))
+    real = {(mod, name): getattr(mod, name) for mod, name in patched}
+    for mod, name in patched:
+        setattr(mod, name, recording(mod, name))
+    cfg8 = int8["cfg"]
+    model8 = AKIModel(cfg8, device="cpu")
+    model8.load_state_dict(torch.load(int8["weights"]), strict=True)
+    quant.quantize_params(model8, "w8a8", vision=True)
+    quant.FUSED_ACT_QUANT = "on"
+    ids8, images8, valid8 = int8["prompt"]
+    toks, num = engine.generate(model8, ids8, images8, valid8, int8["new"], int8["max_len"],
+                                policy=F32, use_flash=True, kv_int8=True, device="cpu",
+                                tp_mesh=mesh)
+    st8 = engine.prefill(model8, ids8, images8, valid8, int8["max_len"], policy=F32,
+                         device="cpu", kv_int8=True)
+    quant.FUSED_ACT_QUANT = "auto"
+    for (mod, name), fn in real.items():
+        setattr(mod, name, fn)
+    out["w8a8"] = dict(tokens=toks.numpy(), num=num.numpy(), routes=routes,
+                       cache_k=tuple(st8.cache.k.shape),
+                       qkv_rows=model8.lang_model.model.layers[0].self_attn["qkv_proj"].q
+                       .shape[0])
+
+    # the MoE decoder: experts cut along their inner dim
+    cfg_moe = dataclasses.replace(CFG, phi3=dataclasses.replace(
+        CFG.phi3, moe=MoEConfig(**moe["fields"])))
+    model_moe = AKIModel(cfg_moe, device="cpu")
+    model_moe.load_state_dict(torch.load(moe["weights"]), strict=True)
+    st = engine.prefill(model_moe, ids, images, valid, max_len, policy=F32, device="cpu",
+                        tp_mesh=mesh)
+    toks, num = engine.generate(model_moe, ids, images, valid, new, max_len, policy=F32,
+                                device="cpu")
+    out["moe"] = dict(logits=st.last_logits.numpy(), tokens=toks.numpy(), num=num.numpy(),
+                      w_gate=tuple(model_moe.lang_model.model.layers[0].mlp.w_gate.shape))
     return out
 
 
 def cli_cases(rank, world, pretrain_cfg, sft_cfg, out):
     """The training CLIs as ``torchrun`` would start them (RANK and
-    WORLD_SIZE set): pretrain at fsdp=2 under ZeRO-2, SFT at fsdp=2; each
-    rank's metrics (rank 1 writes none); what still raises."""
+    WORLD_SIZE set): pretrain at fsdp=2 under ZeRO-2, SFT at fsdp=2, and
+    each at tensor=2; each rank's metrics (rank 1 writes none); what still
+    raises."""
     import json
     from pathlib import Path
 
@@ -210,14 +280,22 @@ def cli_cases(rank, world, pretrain_cfg, sft_cfg, out):
         res[name] = ([json.loads(line) for line in log.read_text().splitlines()]
                      if rank == 0 else None)
         dist.barrier()
-    for what, ov in (("tensor", "mesh.tensor=2"),
-                     ("offload", "training_config.host_offload_params=true")):
-        try:
-            sft.main(["--config", sft_cfg, "--device", "cpu", ov,
-                      f"training_config.run_dir={out}/refused"])
-            res[what] = "ran"
-        except NotImplementedError as e:
-            res[what] = str(e)
+        # the same run over the tensor axis
+        run_dir = Path(out) / f"{name}_tp2"
+        mod.main(["--config", path, "--device", "cpu", "mesh.fsdp=1", "mesh.tensor=2",
+                  f"{key}.run_dir={run_dir}"])
+        dist.barrier()
+        res[f"{name}_tp2"] = ([json.loads(line) for line in
+                               (run_dir / "metrics.jsonl").read_text().splitlines()]
+                              if rank == 0 else None)
+        dist.barrier()
+    try:
+        sft.main(["--config", sft_cfg, "--device", "cpu",
+                  "training_config.host_offload_params=true",
+                  f"training_config.run_dir={out}/refused"])
+        res["offload"] = "ran"
+    except NotImplementedError as e:
+        res["offload"] = str(e)
     return res
 
 
@@ -277,20 +355,12 @@ def expert_cases(rank, world, layer, x, g, moe_cfgs, weights, batch, run_dir):
         res = dict(metrics=metrics)
         if name == "fsdp2_ep2":
             path = trainer.ckpt.save(trainer.state, epoch=0)
-            saved = state_numpy_experts(trainer)
+            saved = state_numpy(trainer)["weights"]
             res.update(ckpt=str(path), saved=saved if rank == 0 else None)
         out[f"train_{name}"] = res
     return out
 
 
-def state_numpy_experts(trainer) -> dict:
-    """The whole weights, the expert blocks gathered over the expert ranks
-    (every rank calls)."""
-    from aki_torch.train.checkpoints import whole
-
-    shards = getattr(trainer.model, "expert_shards", None)
-    return {k: whole(v, shards, k).detach().float().numpy().copy()
-            for k, v in trainer.model.state_dict().items()}
 
 
 def pipe_cases(rank, world, weights, moe_weights, moe_fields, batch, fwd, run_dir,
@@ -341,4 +411,81 @@ def pipe_cases(rank, world, weights, moe_weights, moe_fields, batch, fwd, run_di
         out["odd_batch"] = "ran"
     except ValueError as e:
         out["odd_batch"] = str(e)
+    return out
+
+
+
+def replicated_grads(trainer: Trainer) -> dict:
+    """This rank's gradients of the weights the tensor ranks replicate (its
+    shard of each under FSDP2)."""
+    split = trainer.model.tensor_shards.names
+    return {n: local_numpy(p.grad) for n, p in trainer.model.named_parameters()
+            if p.grad is not None and n not in split}
+
+
+def local_numpy(t: torch.Tensor) -> np.ndarray:
+    from aki_torch.train.optim import local
+
+    return local(t).detach().float().numpy().copy()
+
+
+def tp_train_cases(rank, world, weights, batch, run_dir, restore_dir,
+                   moe_weights=None, moe_fields=None):
+    """Training over the ``tensor`` axis. On 2 ranks: tensor=2 (3 steps,
+    the first step's whole and replicated gradients, a checkpoint and a 4th
+    step), its run dir restored at fsdp=2 and a single-device run dir
+    restored at tensor=2. On 4 ranks:
+    fsdp=2 x tensor=2 (with a checkpoint), data=2 x tensor=2, tensor=2 x
+    seq=2, a single-device run dir restored at
+    fsdp=2 x tensor=2, and the MoE model at expert=2 x tensor=2."""
+    import dataclasses
+    from pathlib import Path
+
+    from aki_torch.models.configs import MoEConfig
+
+    def trainer(name, mesh, model=None, cfg=CFG, **kw):
+        return Trainer(cfg, run_config(f"{run_dir}/{name}", mesh=MeshConfig(**mesh), **kw),
+                       model=model or load_model(weights), device="cpu", metrics=NoMetrics())
+
+    def run(name, mesh, save=False):
+        t = trainer(name, mesh)
+        metrics, grads = train(t, batch)
+        res = dict(metrics=metrics, grads=grads if rank == 0 else None,
+                   replicated=replicated_grads(t), tensor_rank=t.mesh.coord("tensor"),
+                   split={n: d for n, (d, _) in t.model.tensor_shards.names.items()},
+                   local_rows=int(t.put_batch(batch).input_ids.shape[0]))
+        if save:
+            res["ckpt"] = str(t.ckpt.save(t.state, epoch=0))
+            saved = state_numpy(t)
+            res["saved"] = saved if rank == 0 else None
+            res["step4"] = {k: float(v) for k, v in
+                            t.step_fn(t.state, t.put_batch(batch)).items()}
+        return res
+
+    def restored(name, mesh, path):
+        t = Trainer(CFG, run_config(path, mesh=MeshConfig(**mesh), training_mode="resume"),
+                    model=load_model(weights), device="cpu", metrics=NoMetrics())
+        st = state_numpy(t)
+        return st if rank == 0 else {"step": st["step"]}
+
+    out = {}
+    if world == 2:
+        out["tp2"] = run("tp2", dict(fsdp=1, tensor=2), save=True)
+        out["tp2_on_fsdp2"] = restored("r1", dict(fsdp=2), str(Path(out["tp2"]["ckpt"]).parent))
+        out["single_on_tp2"] = restored("r2", dict(fsdp=1, tensor=2), restore_dir)
+        return out
+    out["fsdp2_tp2"] = run("fsdp2_tp2", dict(fsdp=2, tensor=2), save=True)
+    out["dp2_tp2"] = run("dp2_tp2", dict(data=2, fsdp=1, tensor=2))
+    out["tp2_seq2"] = run("tp2_seq2", dict(fsdp=1, tensor=2, seq=2))
+    out["single_on_fsdp2_tp2"] = restored("r3", dict(fsdp=2, tensor=2), restore_dir)
+    cfg = dataclasses.replace(CFG, phi3=dataclasses.replace(CFG.phi3,
+                                                            moe=MoEConfig(**moe_fields)))
+    model = AKIModel(cfg, device="cpu")
+    model.load_state_dict(torch.load(moe_weights), strict=True)
+    t = trainer("moe_ep2_tp2", dict(fsdp=1, expert=2, tensor=2), model=model, cfg=cfg,
+                moe_aux_weight=0.5)
+    metrics, grads = train(t, batch)
+    out["moe_ep2_tp2"] = dict(metrics=metrics, grads=grads if rank == 0 else None,
+                              expert_tensor={n for n in t.model.tensor_shards.names
+                                             if n in t.model.expert_shards.names})
     return out

@@ -168,17 +168,21 @@ def test_server_batched_admission_drains(model):
 
 
 def test_server_rejects_tp_mesh(model):
-    """Tensor-parallel serving is ported (tests/test_torch_tp.py); W8A8
-    weights under it are not, and raise naming the ROADMAP item."""
+    """Tensor-parallel serving, W8A8 weights included, is ported
+    (tests/test_torch_tp.py: W8A8 + int8 KV at tensor=2 against JAX's
+    sharded engine); a ``tensor`` axis that the decoder's heads do not
+    divide is refused before anything is cut, with the weights left whole."""
     import copy
     import types
 
     from aki_torch.models.quant import quantize_params
 
     quant = quantize_params(copy.deepcopy(model), "w8a8")
-    mesh = types.SimpleNamespace(shape={"tensor": 2}, coord=lambda axis: 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    mesh = types.SimpleNamespace(shape={"tensor": 3}, coord=lambda axis: 0)
+    with pytest.raises(ValueError, match="must divide the 'tensor' axis"):
         ServingEngine(quant, tp_mesh=mesh, device="cpu")
+    assert quant.lang_model.model.tp is None
+    assert quant.lang_model.model.cfg == CFG.phi3
 
 
 def test_server_drains_under_uploader_contention(model):

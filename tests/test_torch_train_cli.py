@@ -318,9 +318,9 @@ def test_accum_unroll_accepted_and_default_device_is_the_card():
 def test_clis_run_sharded_under_gloo(tmp_path, monkeypatch):
     """Both CLIs on a 2-rank gloo group with ``mesh.fsdp=2`` (pretrain also
     ``fsdp_strategy=grad_op``, SFT ``host_offload_params`` refused under
-    the group): rank 0 logs, rank 1 does not, and the logged losses and grad
-    norms are the single-device CLI's within 1e-4; ``mesh.tensor=2`` still
-    raises."""
+    the group) and with ``mesh.tensor=2``: rank 0 logs, rank 1 does not,
+    and the logged losses and grad norms are the single-device CLI's within
+    1e-4 (the file holds that CLI to JAX's step)."""
     from ._torch_dist import run_group
 
     monkeypatch.delenv("AKI_REMAT_POLICY", raising=False)
@@ -334,12 +334,13 @@ def test_clis_run_sharded_under_gloo(tmp_path, monkeypatch):
                       for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
     ranks = run_group("_torch_dist_cases:cli_cases", 2, tmp_path / "group", timeout=300,
                       pretrain_cfg=str(pt), sft_cfg=str(st), out=str(tmp_path))
-    for name in ("pretrain", "sft"):
+    for name in ("pretrain", "sft", "pretrain_tp2", "sft_tp2"):
+        base = name.split("_")[0]
         got = ranks[0][name]
         assert ranks[1][name] is None                   # rank 1 writes no metrics
-        assert [m["step"] for m in got] == [m["step"] for m in want[name]] == [1, 2, 3]
+        assert [m["step"] for m in got] == [m["step"] for m in want[base]] == [1, 2, 3]
         for k in ("training_loss", "grad_norm"):
-            np.testing.assert_allclose([m[k] for m in got], [m[k] for m in want[name]],
+            np.testing.assert_allclose([m[k] for m in got], [m[k] for m in want[base]],
                                        rtol=LOSS_RTOL, err_msg=f"{name} {k}")
     for r in ranks:
-        assert "item 10" in r["tensor"] and "item 10" in r["offload"]
+        assert "item 10" in r["offload"]
