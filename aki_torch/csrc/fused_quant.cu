@@ -9,7 +9,10 @@
 // then, per row: s = max|h| / 127 (1 when the max is 0),
 // q = clip(rint(h / s), -127, 127) as int8. All math is f32; h never leaves
 // registers, so each input row is read once and q and s written once.
-// One kernel body, templated on the op, serves the four entry points.
+// One kernel body, templated on the op, serves the four entry points, for
+// rows of bf16 or of f32 (serving with f32 activations over int8 weights,
+// as the TPU kernels read any float dtype and compute in f32): the two
+// differ only in the bytes a row takes in the ring and its load.
 //
 // What bounds it on an H100: bytes for rms, ln and silu*mul (0.036-0.38
 // ms at 3.35 TB/s at the W8A8 serving prefill: 48 rows of 655 decoder
@@ -58,13 +61,19 @@ constexpr int kMaxWidth = 8192;
 constexpr int kBlockWarps = 4;   // warps per block, but for a team of 8
 enum Op { kRms = 0, kLn = 1, kSiluMul = 2, kGelu = 3 };
 
-// 4 bf16 values from shared memory as f32
+// 4 values of a row from shared memory as f32: 8 bytes of bf16, or 16 of f32
+template <bool kF32>
 __device__ __forceinline__ void load4(const uint8_t* p, float (&v)[kVec]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(raw.x << 16);
-  v[1] = __uint_as_float(raw.x & 0xffff0000u);
-  v[2] = __uint_as_float(raw.y << 16);
-  v[3] = __uint_as_float(raw.y & 0xffff0000u);
+  if constexpr (kF32) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(raw.x << 16);
+    v[1] = __uint_as_float(raw.x & 0xffff0000u);
+    v[2] = __uint_as_float(raw.y << 16);
+    v[3] = __uint_as_float(raw.y & 0xffff0000u);
+  }
 }
 
 __device__ __forceinline__ void ldg4(const float* p, float (&v)[kVec]) {
@@ -118,21 +127,24 @@ __device__ __forceinline__ uint32_t quant4(const float (&h)[kVec], float sc, flo
 // kMaxC: chunks of 4 values a lane holds at most; teams of kTeam warps,
 // blockDim.x / (32 kTeam) to a block; team t of the grid takes rows t,
 // t + n_teams, ...; a ring of ``stages`` rows a team (1 only when
-// n_teams >= rows: each team has one row)
-template <int kOp, int kMaxC, int kTeam>
+// n_teams >= rows: each team has one row). x and y: rows of bf16, or of
+// f32 (kF32), ldx and ldy elements apart.
+template <int kOp, int kMaxC, int kTeam, bool kF32>
 __global__ void __launch_bounds__(32 * kTeam * (kTeam > kBlockWarps ? 1 : kBlockWarps / kTeam))
-fused_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+fused_quant_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
                    const float* __restrict__ g, const float* __restrict__ bias,
                    int8_t* __restrict__ q, float* __restrict__ s, int rows, int d, int ldx,
                    int ldy, float eps, int n_teams, int stages) {
   constexpr int kTT = 32 * kTeam;                  // threads of a team
   constexpr int kIn = kOp == kSiluMul ? 2 : 1;     // input rows (gate and up)
+  constexpr int kEs = kF32 ? 4 : 2;                // bytes of a value
+  constexpr int kChunk = kVec * kEs;               // bytes of a chunk
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float red[3][kBlockWarps][kTeam];     // per reduction of a row, team, warp
   const int tic = threadIdx.x / kTT;               // team in block
   const int tl = threadIdx.x % kTT;                // thread in team
   const int d4 = d / kVec;                         // chunks of a row
-  const int row_bytes = d * 2;
+  const int row_bytes = d * kEs;
   const int stage_bytes = row_bytes * kIn;
   uint8_t* ring = smem + (size_t)tic * stages * stage_bytes;
   int row = blockIdx.x * (blockDim.x / kTT) + tic;
@@ -141,10 +153,10 @@ fused_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
   auto issue = [&](int r, int i) {
     if (r < rows) {
       uint8_t* stage = ring + i * stage_bytes;
-      const uint8_t* src = reinterpret_cast<const uint8_t*>(x + (size_t)r * ldx);
+      const uint8_t* src = x + (size_t)r * ldx * kEs;
       for (int c = tl; c < row_bytes / 16; c += kTT) cp_async16(stage + c * 16, src + c * 16);
       if (kOp == kSiluMul) {
-        const uint8_t* up = reinterpret_cast<const uint8_t*>(y + (size_t)r * ldy);
+        const uint8_t* up = y + (size_t)r * ldy * kEs;
         for (int c = tl; c < row_bytes / 16; c += kTT)
           cp_async16(stage + row_bytes + c * 16, up + c * 16);
       }
@@ -170,10 +182,10 @@ fused_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
 #pragma unroll
       for (int e = 0; e < kVec; ++e) h[c][e] = 0.f;
       if (ci >= d4) continue;
-      load4(stage + ci * 8, h[c]);
+      load4<kF32>(stage + ci * kChunk, h[c]);
       if (kOp == kSiluMul) {
         float u[kVec];
-        load4(stage + row_bytes + ci * 8, u);
+        load4<kF32>(stage + row_bytes + ci * kChunk, u);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
           const float gt = h[c][e];
@@ -273,9 +285,9 @@ struct Plan {
   size_t smem;
 };
 
-template <int kOp, int kMaxC, int kTeam>
+template <int kOp, int kMaxC, int kTeam, bool kF32>
 cudaError_t plan_op(int rows, int d, int sms, Plan* p) {
-  auto kernel = fused_quant_kernel<kOp, kMaxC, kTeam>;
+  auto kernel = fused_quant_kernel<kOp, kMaxC, kTeam, kF32>;
   // the largest dynamic shared memory set, and the last occupancy asked, so far
   static int smem_set = 0;
   static int last_threads = -1, last_per_sm = 0;
@@ -283,7 +295,7 @@ cudaError_t plan_op(int rows, int d, int sms, Plan* p) {
   p->team = kTeam;
   p->tpb = kTeam >= kBlockWarps ? 1 : kBlockWarps / kTeam;
   const int threads = p->tpb * 32 * kTeam;
-  const size_t stage = (size_t)p->tpb * d * 2 * (kOp == kSiluMul ? 2 : 1);
+  const size_t stage = (size_t)p->tpb * d * (kF32 ? 4 : 2) * (kOp == kSiluMul ? 2 : 1);
   const int blocks = (rows + p->tpb - 1) / p->tpb;
   for (p->stages = 1;; ++p->stages) {
     p->smem = p->stages * stage;
@@ -307,19 +319,19 @@ cudaError_t plan_op(int rows, int d, int sms, Plan* p) {
   return cudaSuccess;
 }
 
-template <int kOp, int kMaxC, int kTeam>
+template <int kOp, int kMaxC, int kTeam, bool kF32>
 cudaError_t launch_op(const void* x, const void* y, const void* g, const void* b, void* q,
                       void* s, int rows, int d, int ldx, int ldy, float eps, int sms,
                       cudaStream_t st, Plan* plan_only) {
   Plan p;
-  cudaError_t e = plan_op<kOp, kMaxC, kTeam>(rows, d, sms, &p);
+  cudaError_t e = plan_op<kOp, kMaxC, kTeam, kF32>(rows, d, sms, &p);
   if (e != cudaSuccess) return e;
   if (plan_only) {
     *plan_only = p;
     return cudaSuccess;
   }
-  fused_quant_kernel<kOp, kMaxC, kTeam><<<p.blocks, p.tpb * 32 * kTeam, p.smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
+  fused_quant_kernel<kOp, kMaxC, kTeam, kF32><<<p.blocks, p.tpb * 32 * kTeam, p.smem, st>>>(
+      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(y),
       static_cast<const float*>(g), static_cast<const float*>(b), static_cast<int8_t*>(q),
       static_cast<float*>(s), rows, d, ldx, ldy, eps, p.blocks * p.tpb, p.stages);
   return cudaGetLastError();
@@ -327,7 +339,7 @@ cudaError_t launch_op(const void* x, const void* y, const void* g, const void* b
 
 // the team's instance, with the chunks a lane holds rounded up to one of
 // the compiled counts
-template <int kOp>
+template <int kOp, bool kF32>
 cudaError_t dispatch(const void* x, const void* y, const void* g, const void* b, void* q,
                      void* s, int rows, int d, int ldx, int ldy, float eps, cudaStream_t st,
                      Plan* plan_only) {
@@ -339,7 +351,7 @@ cudaError_t dispatch(const void* x, const void* y, const void* g, const void* b,
   const int nc = (d / kVec + 32 * team - 1) / (32 * team);
 #define AKI_CASE(T, C)                                                                    \
   if (team == T && nc <= C)                                                               \
-    return launch_op<kOp, C, T>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, sms, st,        \
+    return launch_op<kOp, C, T, kF32>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, sms, st,  \
                                 plan_only);
   AKI_CASE(1, 2) AKI_CASE(1, 3) AKI_CASE(1, 5) AKI_CASE(1, 9) AKI_CASE(1, 16) AKI_CASE(1, 24)
   AKI_CASE(4, 3) AKI_CASE(4, 5) AKI_CASE(4, 9) AKI_CASE(4, 16)
@@ -348,16 +360,27 @@ cudaError_t dispatch(const void* x, const void* y, const void* g, const void* b,
   return cudaErrorInvalidValue;
 }
 
-cudaError_t run(int op, const void* x, const void* y, const void* g, const void* b, void* q,
-                void* s, int rows, int d, int ldx, int ldy, float eps, cudaStream_t st,
-                Plan* plan_only) {
+template <bool kF32>
+cudaError_t run_dtype(int op, const void* x, const void* y, const void* g, const void* b,
+                      void* q, void* s, int rows, int d, int ldx, int ldy, float eps,
+                      cudaStream_t st, Plan* plan_only) {
   switch (op) {
-    case kRms: return dispatch<kRms>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
-    case kLn: return dispatch<kLn>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
+    case kRms:
+      return dispatch<kRms, kF32>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
+    case kLn:
+      return dispatch<kLn, kF32>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
     case kSiluMul:
-      return dispatch<kSiluMul>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
-    default: return dispatch<kGelu>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
+      return dispatch<kSiluMul, kF32>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
+    default:
+      return dispatch<kGelu, kF32>(x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
   }
+}
+
+cudaError_t run(int op, int f32, const void* x, const void* y, const void* g, const void* b,
+                void* q, void* s, int rows, int d, int ldx, int ldy, float eps, cudaStream_t st,
+                Plan* plan_only) {
+  return f32 ? run_dtype<true>(op, x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only)
+             : run_dtype<false>(op, x, y, g, b, q, s, rows, d, ldx, ldy, eps, st, plan_only);
 }
 
 bool bad_width(int d) { return d <= 0 || d % 128 != 0 || d > kMaxWidth; }
@@ -368,15 +391,17 @@ extern "C" const char* fused_quant_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The launch plan of op at (rows, d) on the current device, as fused_quant
-// would launch it: out = {warps per row, teams per block, blocks, blocks
-// resident per SM, ring stages} (aki_torch/ops/fused_quant.py:row_plan
-// mirrors the first three from the fourth).
-extern "C" int fused_quant_plan(int op, int rows, int d, int* out) {
+// The launch plan of op at (rows, d) of bf16 rows (f32 = 0) or f32 rows
+// (f32 = 1) on the current device, as fused_quant would launch it: out =
+// {warps per row, teams per block, blocks, blocks resident per SM, ring
+// stages} (aki_torch/ops/fused_quant.py:row_plan mirrors the first three
+// from the fourth; f32 rows take twice the ring's bytes, so fewer blocks
+// may fit an SM).
+extern "C" int fused_quant_plan(int op, int f32, int rows, int d, int* out) {
   if (bad_width(d) || rows <= 0 || op < 0 || op > 3 || !out) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t e =
-      run(op, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, rows, d, d, d, 0.f, nullptr, &p);
+  const cudaError_t e = run(op, f32, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, rows,
+                            d, d, d, 0.f, nullptr, &p);
   if (e != cudaSuccess) return (int)e;
   out[0] = p.team;
   out[1] = p.tpb;
@@ -387,17 +412,19 @@ extern "C" int fused_quant_plan(int op, int rows, int d, int* out) {
 }
 
 // op: 0 rms (x, g), 1 ln (x, g, b), 2 silu*mul (x = gate, y = up), 3 gelu (x, b).
-// x, y (rows, d) bf16 with unit column stride and row strides ldx, ldy >= d
-// (multiples of 8); g, b (d,) f32; q (rows, d) int8 and s (rows,) f32,
-// contiguous. d % 128 == 0, d <= 8192; all pointers 16-byte aligned.
-extern "C" int fused_quant(int op, const void* x, const void* y, const void* g,
+// x, y (rows, d) bf16 (f32 = 0) or f32 (f32 = 1) with unit column stride and
+// row strides ldx, ldy >= d elements (16-byte multiples); g, b (d,) f32;
+// q (rows, d) int8 and s (rows,) f32, contiguous. d % 128 == 0, d <= 8192;
+// all pointers 16-byte aligned.
+extern "C" int fused_quant(int op, int f32, const void* x, const void* y, const void* g,
                            const void* b, void* q, void* s, int rows, int d, int ldx, int ldy,
                            float eps, void* stream) {
-  if (bad_width(d) || rows < 0 || op < 0 || ldx < d || ldy < d || ldx % 8 != 0 ||
-      ldy % 8 != 0 || op > 3 || !x || !q || !s || (op == kSiluMul && !y) ||
+  const int align = f32 ? 4 : 8;   // elements in 16 bytes
+  if (bad_width(d) || rows < 0 || op < 0 || ldx < d || ldy < d || ldx % align != 0 ||
+      ldy % align != 0 || op > 3 || !x || !q || !s || (op == kSiluMul && !y) ||
       ((op == kRms || op == kLn) && !g) || ((op == kLn || op == kGelu) && !b))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  return (int)run(op, x, y, g, b, q, s, rows, d, ldx, ldy, eps,
+  return (int)run(op, f32, x, y, g, b, q, s, rows, d, ldx, ldy, eps,
                   static_cast<cudaStream_t>(stream), nullptr);
 }

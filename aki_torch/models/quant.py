@@ -1,18 +1,24 @@
-"""Int8 quantization for serving: weight-only (w8) and dynamic W8A8
-(counterpart of ``aki_tpu/models/quant.py``).
+"""Int8 and int4 weights for serving: weight-only (w8, w4) and dynamic
+W8A8 / W4A8 (counterpart of ``aki_tpu/models/quant.py``).
 
 :func:`quantize_params` replaces the model's big projections, in place, by
-:class:`QuantTensor` modules: an int8 weight in the ``nn.Linear`` layout
-``(out, in)`` with one bf16 scale per output channel (per-output-channel
-symmetric max-abs, the JAX ``(in, out)`` kernel's per-column scale), and
-the float bias where the layer has one.
+:class:`QuantTensor` modules: an int8 or int4 weight in the ``nn.Linear``
+layout ``(out, in)`` with one bf16 scale per output channel
+(per-output-channel symmetric max-abs, the JAX ``(in, out)`` kernel's
+per-column scale), and the float bias where the layer has one. An int4
+weight is stored packed, two's-complement nibbles two to a byte along
+``in`` (:func:`pack_int4`: byte ``j`` of a row holds columns ``2j`` in its
+low and ``2j + 1`` in its high nibble), half the bytes of int8.
 
-- **w8**: :func:`mm` converts the int8 weight to the activation's dtype for
-  the product and scales the output, ``x @ q^T * s``.
-- **w8a8** (``a8=True``): when the product has at least 64 rows, :func:`mm`
-  quantizes the activation per row and runs an int8 x int8 -> int32 product
-  (``torch._int_mm``; the JAX package leaves this product to XLA), rescaled
-  by ``s_row * s_col`` in f32. Fewer rows (decode) take the w8 route.
+- **w8** / **w4**: :func:`mm` converts the weight (unpacked first, for
+  int4) to the activation's dtype for the product and scales the output,
+  ``x @ q^T * s``.
+- **w8a8** / **w4a8** (``a8=True``): when the product has at least 64
+  rows, :func:`mm` quantizes the activation per row and runs an int8 x
+  int8 -> int32 product (``torch._int_mm``, on the unpacked int8 values
+  of an int4 weight; the JAX package leaves this product to XLA),
+  rescaled by ``s_row * s_col`` in f32. Fewer rows (decode) take the
+  weight-only route.
 
 Ahead of an a8 product, one of the fused "op + quantize" kernels of
 :mod:`aki_torch.ops.fused_quant` may produce the int8 rows directly
@@ -39,24 +45,48 @@ from .common import layernorm, linear, rmsnorm
 FUSED_ACT_QUANT = "auto"                              # "auto" | "on" | "off"
 FUSED_SITES = frozenset({"ln", "rms", "silu", "gelu"})
 A8_MIN_ROWS = 64                                      # mm's a8 gate
-MODES = ("w8", "w8a8")
+MODES = ("w8", "w8a8", "w4", "w4a8")
 
 
 class QuantTensor(nn.Module):
-    """Int8 weight ``q`` (out, in), per-output-channel scale ``s`` (out,)
-    bf16, and the layer's float ``bias`` (or None); ``a8`` switches
+    """Int8 weight ``q`` (out, in) (``bits=8``), or int4 packed two to a
+    byte as int8 (out, in / 2) (``bits=4``); per-output-channel scale ``s``
+    (out,) bf16, and the layer's float ``bias`` (or None); ``a8`` switches
     :func:`mm` to the int8 x int8 product."""
 
     def __init__(self, q: torch.Tensor, s: torch.Tensor, a8: bool = False,
-                 bias: torch.Tensor | None = None):
+                 bias: torch.Tensor | None = None, bits: int = 8):
         super().__init__()
         self.register_buffer("q", q)
         self.register_buffer("s", s)
         self.register_buffer("bias", bias)
         self.a8 = a8
+        self.bits = bits
+
+    @property
+    def in_features(self) -> int:
+        return self.q.shape[1] * (8 // self.bits)
+
+    def int8(self) -> torch.Tensor:
+        """The weight's values as int8 (out, in): unpacked for int4."""
+        return unpack_int4(self.q) if self.bits == 4 else self.q
 
     def extra_repr(self) -> str:
-        return f"out={self.q.shape[0]}, in={self.q.shape[1]}, a8={self.a8}"
+        return f"out={self.q.shape[0]}, in={self.in_features}, bits={self.bits}, a8={self.a8}"
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7], (..., n) with n even -> (..., n / 2) int8:
+    byte ``j`` holds value ``2j`` in its low nibble and ``2j + 1`` in its
+    high one, two's complement."""
+    return (q[..., 1::2] << 4) | (q[..., 0::2] & 0x0F)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`pack_int4`: arithmetic shifts of int8 sign-extend
+    each nibble."""
+    lo, hi = (p << 4) >> 4, p >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(*p.shape[:-1], 2 * p.shape[-1])
 
 
 @dataclasses.dataclass
@@ -72,18 +102,23 @@ class PreQuant:
 
 def quantize_tensor(w: torch.Tensor, a8: bool = False, bits: int = 8,
                     bias: torch.Tensor | None = None) -> QuantTensor:
-    """Per-output-channel symmetric int8 of an ``(out, in)`` weight:
-    ``s = max|w_row| / 127`` (1 for an all-zero row),
-    ``q = clip(round(w / s), -127, 127)`` (round half to even), ``s``
-    stored in bf16. Only ``bits=8`` is ported."""
-    if bits != 8:
-        raise ValueError(f"only 8-bit weights are ported, not {bits}")
+    """Per-output-channel symmetric int8 (``bits=8``) or int4 (``bits=4``)
+    of an ``(out, in)`` weight: ``s = max|w_row| / maxq`` (maxq 127 or 7; 1
+    for an all-zero row), ``q = clip(round(w / s), -maxq, maxq)`` (round
+    half to even, by the f32 scale), ``s`` stored in bf16. Int4 is packed
+    along ``in``, which must be even (``ValueError``)."""
+    if bits not in (8, 4):
+        raise ValueError(f"weights are quantized to 8 or 4 bits, not {bits}")
+    if bits == 4 and w.shape[-1] % 2:
+        raise ValueError(f"int4 packs two columns a byte: in={w.shape[-1]} is odd")
+    maxq = 127.0 if bits == 8 else 7.0
     w32 = w.float()
     amax = w32.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(amax == 0, 1.0, amax / 127.0)
-    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8).contiguous()
+    scale = torch.where(amax == 0, 1.0, amax / maxq)
+    q = torch.clamp(torch.round(w32 / scale), -maxq, maxq).to(torch.int8)
+    q = (pack_int4(q) if bits == 4 else q).contiguous()
     return QuantTensor(q, scale[:, 0].to(torch.bfloat16), a8,
-                       None if bias is None else bias.detach())
+                       None if bias is None else bias.detach(), bits=bits)
 
 
 def is_quantized(w) -> bool:
@@ -110,14 +145,14 @@ def mm(x, w: QuantTensor) -> torch.Tensor:
     if isinstance(x, PreQuant):
         if not w.a8:
             raise TypeError("PreQuant activations need an a8 QuantTensor")
-        y = _int8_product(x.q, w.q)
+        y = _int8_product(x.q, w.int8())
         return (y.float() * x.s * w.s.float()).to(x.dtype)
     rows = x.numel() // x.shape[-1]
     if w.a8 and rows >= A8_MIN_ROWS:
         xq, sx = quantize_acts(x)
-        y = _int8_product(xq, w.q)
+        y = _int8_product(xq, w.int8())
         return (y.float() * sx * w.s.float()).to(x.dtype)
-    y = F.linear(x, w.q.to(x.dtype))
+    y = F.linear(x, w.int8().to(x.dtype))
     return y * w.s.to(x.dtype)
 
 
@@ -174,9 +209,9 @@ def gelu_quant_acts(x: torch.Tensor, bias: torch.Tensor, probe):
     return F.gelu((x + bias).float(), approximate="tanh").to(x.dtype)
 
 
-def _quantize_linear(parent: nn.ModuleDict, name: str, a8: bool) -> None:
+def _quantize_linear(parent: nn.ModuleDict, name: str, a8: bool, bits: int = 8) -> None:
     lin = parent[name]
-    parent[name] = quantize_tensor(lin.weight, a8=a8, bias=lin.bias)
+    parent[name] = quantize_tensor(lin.weight, a8=a8, bits=bits, bias=lin.bias)
 
 
 def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
@@ -204,9 +239,11 @@ def quantize_params(model: nn.Module, mode: str = "w8", fuse: bool = False,
       kernel can run; gelu(0) = 0 against zero weights changes no number.
 
     The embeddings, the norms, the patch embedding and the Perceiver stay
-    float. ``mode`` is "w8" or "w8a8" (the int4 modes are not ported). A
-    MoE decoder raises ``NotImplementedError``, as the JAX function fails
-    on one.
+    float. ``mode`` is one of :data:`MODES`: the weight bits (8 or 4) and
+    whether the activations are quantized (a8). In the w4 modes the
+    decoder's projections and the head are int4 and the tower stays int8
+    (decode never runs it), as in JAX. A MoE decoder raises
+    ``NotImplementedError``, as the JAX function fails on one.
     """
     if mode not in MODES:
         raise ValueError(f"quantize mode {mode!r} is not one of {MODES}")
@@ -215,15 +252,16 @@ def quantize_params(model: nn.Module, mode: str = "w8", fuse: bool = False,
         # lacks: int8 serving has no MoE decoder in either package
         raise NotImplementedError("quantize_params: the MoE decoder (Phi3Config.moe) has "
                                   "no int8 serving path; only the dense MLP is quantized")
-    a8 = mode == "w8a8"
+    a8 = mode.endswith("a8")
+    bits = 4 if mode.startswith("w4") else 8
     lm = model.lang_model
     for layer in lm.model.layers:
         for name in ("qkv_proj", "o_proj"):
-            _quantize_linear(layer.self_attn, name, a8)
+            _quantize_linear(layer.self_attn, name, a8, bits)
         for name in ("gate_up_proj", "down_proj"):
-            _quantize_linear(layer.mlp, name, a8)
+            _quantize_linear(layer.mlp, name, a8, bits)
     head = lm.lm_head
-    head.quant = quantize_tensor(head.weight, a8=a8)
+    head.quant = quantize_tensor(head.weight, a8=a8, bits=bits)
     del head.weight
     if vision:
         for layer in model.vision_encoder.encoder["layers"]:

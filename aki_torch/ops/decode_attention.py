@@ -231,8 +231,8 @@ def _check(q, k, ks, v, vs, lengths, layer):
             raise TypeError(f"decode attention kernel: {name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"decode attention kernel: {name} must be contiguous, 16-byte aligned")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"decode attention kernel: q must be bf16, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"decode attention kernel: q must be bf16 or f32, got {q.dtype}")
 
 
 def decode_attention_flat(q, k, ks, v, vs, lengths, layer: int,
@@ -244,7 +244,10 @@ def decode_attention_flat(q, k, ks, v, vs, lengths, layer: int,
     lengths (B,) live tokens of each row, the just-written one included;
     only the first ``live_width`` rows are read (the server's tail
     compaction), the others come back zero. GQA through H % Hkv == 0.
-    Returns (B, 1, H, D) in q's dtype; the kernel takes bf16 q only.
+    Returns (B, 1, H, D) in q's dtype. The kernel takes bf16 q: an f32 q
+    is rounded to bf16 first, as the plain version and JAX's XLA form do,
+    and the kernel's bf16 output is cast to f32 (the plain version casts
+    its f32 sums directly, so the two differ by that rounding).
     """
     if q.device.type == "cpu":
         return decode_attention_flat_reference(q, k, ks, v, vs, lengths, layer, scale,
@@ -259,10 +262,11 @@ def decode_attention_flat(q, k, ks, v, vs, lengths, layer: int,
     rows = b if live_width is None else min(live_width, b)
     if rows <= 0:
         raise ValueError(f"decode attention: live_width {live_width}")
-    qb = q.contiguous()
+    qb = q.to(torch.bfloat16).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     cluster = cluster_size(rows * h, _sm_count(q.device), s_len, d)
-    out = (torch.empty if rows == b else torch.zeros)(q.shape, dtype=q.dtype, device=q.device)
+    out = (torch.empty if rows == b else torch.zeros)(q.shape, dtype=torch.bfloat16,
+                                                      device=q.device)
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
         rc = lib.decode_attention(
@@ -274,7 +278,7 @@ def decode_attention_flat(q, k, ks, v, vs, lengths, layer: int,
         raise RuntimeError("decode_attention launch failed: "
                            + lib.decode_attention_error_string(rc).decode())
     decode_attention_flat.launches += 1
-    return out
+    return out.to(q.dtype)
 
 
 decode_attention_flat.launches = 0

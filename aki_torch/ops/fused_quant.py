@@ -18,8 +18,9 @@ width must be a multiple of 128 (``ValueError`` otherwise), as in JAX.
 On CUDA tensors each function launches its entry point of the CUDA C++
 kernel ``csrc/fused_quant.cu`` (which replaces the four TPU kernels; its
 header says what bounds it) and counts the launch in its ``launches``
-attribute; it raises on what the kernel does not take (rows other than
-bf16, for one) and never falls back.
+attribute; it takes rows of bf16 or f32 (serving with f32 activations;
+the math is f32 either way), raises on what the kernel does not take (rows
+of another dtype, for one) and never falls back.
 On CPU tensors it runs the plain version beside it (``*_reference``).
 
 The kernel gives each row to a team of warps that walks rows team, team +
@@ -71,16 +72,23 @@ def row_plan(op: str, rows: int, d: int, sms: int, per_sm: int) -> tuple[int, in
     return team, tpb, min(-(-rows // tpb), sms * per_sm)
 
 
-def kernel_plan(op: str, rows: int, d: int) -> tuple[int, int, int, int, int]:
-    """The plan the built kernel would launch ``op`` with on the current
-    CUDA device: (warps per row, teams per block, blocks, blocks per SM,
-    ring stages)."""
+def kernel_plan(op: str, rows: int, d: int,
+                dtype: torch.dtype = torch.bfloat16) -> tuple[int, int, int, int, int]:
+    """The plan the built kernel would launch ``op`` with on rows of
+    ``dtype`` on the current CUDA device: (warps per row, teams per block,
+    blocks, blocks per SM, ring stages)."""
     lib = _kernel_lib()
     out = (ctypes.c_int * 5)()
-    rc = lib.fused_quant_plan(_OPS[op], rows, d, out)
+    rc = lib.fused_quant_plan(_OPS[op], _f32_flag(dtype), rows, d, out)
     if rc != 0:
         raise RuntimeError("fused_quant_plan failed: " + lib.fused_quant_error_string(rc).decode())
     return tuple(out)
+
+
+def _f32_flag(dtype: torch.dtype) -> int:
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused quant kernel takes bf16 or f32 rows, got {dtype}")
+    return int(dtype == torch.float32)
 
 
 def _check_width(x: torch.Tensor) -> None:
@@ -122,9 +130,9 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = cuda_build.load("fused_quant")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_quant.argtypes = [i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        lib.fused_quant.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
         lib.fused_quant.restype = i
-        lib.fused_quant_plan.argtypes = [i, i, i, p]
+        lib.fused_quant_plan.argtypes = [i, i, i, i, p]
         lib.fused_quant_plan.restype = i
         lib.fused_quant_error_string.argtypes = [i]
         lib.fused_quant_error_string.restype = ctypes.c_char_p
@@ -151,8 +159,7 @@ def _launch(op: str, x, y=None, g=None, b=None, eps: float = 0.0):
     d = x.shape[-1]
     if d > MAX_WIDTH:
         raise ValueError(f"fused quant kernel: width {d} exceeds {MAX_WIDTH}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused quant kernel takes bf16 rows, got {x.dtype}")
+    f32 = _f32_flag(x.dtype)
     dev = x.device
     for name, t in (("y", y), ("g", g), ("b", b)):
         if t is not None and t.device != dev:
@@ -169,7 +176,8 @@ def _launch(op: str, x, y=None, g=None, b=None, eps: float = 0.0):
     g32 = None if g is None else g.float().contiguous()
     b32 = None if b is None else b.float().contiguous()
     for t in (x2, y2, g32, b32):
-        if t is not None and (t.data_ptr() % 16 or (t.dim() == 2 and t.stride(0) % 8)):
+        if t is not None and (t.data_ptr() % 16
+                              or (t.dim() == 2 and t.stride(0) * t.element_size() % 16)):
             raise ValueError("fused quant kernel: operands must be 16-byte aligned")
     rows = x2.shape[0]
     q = torch.empty((rows, d), dtype=torch.int8, device=dev)
@@ -177,7 +185,7 @@ def _launch(op: str, x, y=None, g=None, b=None, eps: float = 0.0):
     lib = _kernel_lib()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
-        rc = lib.fused_quant(_OPS[op], ptr(x2), ptr(y2), ptr(g32), ptr(b32), ptr(q), ptr(s),
+        rc = lib.fused_quant(_OPS[op], f32, ptr(x2), ptr(y2), ptr(g32), ptr(b32), ptr(q), ptr(s),
                              rows, d, x2.stride(0), d if y2 is None else y2.stride(0), float(eps),
                              torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

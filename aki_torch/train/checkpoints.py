@@ -24,6 +24,9 @@ the expert ranks, a pipeline stage's layers to the first stage), rank 0
 order. Every rank reads the file and keeps its own blocks and shards, so
 a run dir written at one mesh restores at another (fsdp=2, tensor=2 or
 both to one device and back).
+
+A state kept on the host between steps (``host_offload_params``) is
+brought onto the device for a save or a restore and sent back after it.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from ..parallel.offload import resident
 from .optim import is_frozen_path, local
 from .step import TrainState
 
@@ -63,6 +67,11 @@ class CheckpointManager:
 
     def save(self, state: TrainState, epoch: int, step: int | None = None,
              include_frozen: bool = False) -> Path:
+        with resident(state):
+            return self._save(state, epoch, step, include_frozen)
+
+    def _save(self, state: TrainState, epoch: int, step: int | None,
+              include_frozen: bool) -> Path:
         step = state.step if step is None else step
         shards = model_shards(state.model)
         pipe = stage_of(state.model)
@@ -123,6 +132,10 @@ class CheckpointManager:
         path = path or self.latest()
         if path is None:
             return state, 0
+        with resident(state):
+            return self._restore(state, path)
+
+    def _restore(self, state: TrainState, path: Path) -> tuple[TrainState, int]:
         # memory-mapped: the ranks of a host share one copy in the page cache
         blob = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
         load_weights(state.model, blob["model_state_dict"])
@@ -135,8 +148,8 @@ class CheckpointManager:
             names = {id(p): n for n, p in state.model.named_parameters()}
             saved = opt["adamw"]["state"]
             adamw = {**state.optimizer.state_dict()["adamw"], "state": {
-                i: {k: moment_like(v, p, names[id(p)], shards)
-                    if isinstance(v, torch.Tensor) and v.dim() else v
+                i: {k: owned(moment_like(v, p, names[id(p)], shards) if v.dim() else v)
+                    if isinstance(v, torch.Tensor) else v
                     for k, v in saved[index[names[id(p)]]].items()}
                 for i, p in enumerate(params) if index[names[id(p)]] in saved}}
             state.optimizer.load_state_dict({**opt, "adamw": adamw})
@@ -250,6 +263,12 @@ def moment_like(full: torch.Tensor, live: torch.Tensor, name: str, shards) -> to
         raise ValueError(f"checkpoint: a moment of {name} is {tuple(full.shape)}, the "
                          f"parameter {tuple(live.shape)}")
     return shard_like(full, live)
+
+
+def owned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its storage is the memory-mapped file's: the
+    live state owns its storages (host offload resizes them)."""
+    return t if local(t).untyped_storage().resizable() else t.clone()
 
 
 def full_tensor(t: torch.Tensor) -> torch.Tensor:

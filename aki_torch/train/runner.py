@@ -11,10 +11,12 @@ the global batch the loader gives every rank, and splits the spliced
 sequence over ``seq``. Metrics and checkpoint writes happen on rank 0;
 every rank takes part in gathering a checkpoint and restores one.
 
-``host_offload_params`` keeps the parameters and the AdamW state in pinned
-host memory between steps, copied onto the device for the step and back
-after it (JAX's semantics, ``aki_tpu/train/runner.py:158-175, 215-228``):
-it frees device memory between steps, not within one.
+``host_offload_params`` keeps each rank's part of the parameters, buffers
+and AdamW state in pinned host memory between steps, copied onto the device
+for the step and back after it (JAX's semantics,
+``aki_tpu/train/runner.py:158-175, 215-228``; on one device or under any
+mesh, :mod:`aki_torch.parallel.offload`): it frees device memory between
+steps, not within one.
 
 The MoE decoder routes over the global tokens and, with ``expert`` > 1,
 holds E/n experts a rank (:mod:`aki_torch.parallel.expert`).
@@ -29,9 +31,6 @@ With ``pipe`` > 1 each rank is a pipeline stage
 (:mod:`aki_torch.parallel.pipeline`, ``pp_microbatches`` microbatches);
 ``pipe`` composes with ``data`` and ``fsdp`` only (``ValueError``, as in
 JAX).
-
-Not ported (it raises, naming ROADMAP Queue 1 item 10):
-``host_offload_params`` under a process group.
 """
 
 from __future__ import annotations
@@ -48,14 +47,13 @@ from ..models.common import BF16, F32, resolve_device
 from ..models.configs import AKIConfig
 from ..parallel.fsdp import check_strategy
 from ..parallel.mesh import BATCH_AXES, Mesh, MeshConfig, batch_rows, resolve_axis_sizes
+from ..parallel.offload import HostOffload
 from .checkpoints import CheckpointManager
 from .metrics import AverageMeter, MetricsLogger
 from .optim import (cast_frozen_to, decay_everything, decay_except_embeddings,
                     is_frozen_path, make_optimizer)
 from .schedules import make_schedule
 from .step import Batch, StepParallel, TrainState, make_train_step
-
-UNPORTED = "not ported (ROADMAP Queue 1 item 10)"
 
 
 @dataclasses.dataclass
@@ -101,12 +99,10 @@ class _NoMetrics:
         pass
 
 
-def check_parallel(model_cfg: AKIConfig, run_cfg: RunnerConfig, sizes: dict) -> None:
+def check_parallel(model_cfg: AKIConfig, sizes: dict) -> None:
     """Raise on what the sharded Trainer does not run."""
     if sizes["expert"] > 1 and model_cfg.phi3.moe is None:
         raise ValueError(f"mesh expert={sizes['expert']} needs the MoE decoder (phi3.moe)")
-    if run_cfg.host_offload_params:
-        raise NotImplementedError(f"host_offload_params under a process group: {UNPORTED}")
 
 
 class Trainer:
@@ -130,7 +126,7 @@ class Trainer:
         self.mesh = None
         if dist.is_initialized() if distributed is None else distributed:
             self.mesh = Mesh(run_cfg.mesh, self.device.type)
-            check_parallel(model_cfg, run_cfg, self.mesh.shape)
+            check_parallel(model_cfg, self.mesh.shape)
         else:
             resolve_axis_sizes(run_cfg.mesh, 1)   # a mesh of more devices raises
         self.is_main = self.mesh is None or dist.get_rank() == 0
@@ -201,19 +197,20 @@ class Trainer:
             parallel=parallel)
         self.offload_ms: list[tuple[float, float]] = []   # (H2D, D2H) per step
         if run_cfg.host_offload_params:
+            self.state.offload = HostOffload(self.state, self.device)
             inner = self.step_fn
 
             def offloaded_step(state, batch):
-                h2d = self._move_state(self.device)
+                h2d = state.offload.to_device()
                 m = inner(state, batch)
                 # the gradients are the step's temporaries, as in JAX: drop
                 # them, so that nothing of the state stays on the device
                 state.optimizer.zero_grad()
-                self.offload_ms.append((h2d, self._move_state(torch.device("cpu"))))
+                self.offload_ms.append((h2d, state.offload.to_host()))
                 return m
 
             self.step_fn = offloaded_step
-            self._move_state(torch.device("cpu"))
+            self.state.offload.to_host()
         if metrics is None:
             metrics = MetricsLogger(run_cfg.run_dir) if self.is_main else _NoMetrics()
         self.metrics = metrics
@@ -238,38 +235,6 @@ class Trainer:
         self.state.optimizer.block_groups = {id(p): tuple(groups[n])
                                              for n, p in model.named_parameters()
                                              if n in groups}
-
-    def _move_state(self, target: torch.device) -> float:
-        """Move every parameter, buffer and AdamW state tensor to ``target``:
-        the host (pinned when the device is a card; a fresh copy on the CPU,
-        where host and device are one place) or the device. Returns the ms
-        the copies took on the card (CUDA events; 0.0 on the CPU)."""
-        cuda = self.device.type == "cuda"
-        to_host = target.type == "cpu"
-
-        def move(t: torch.Tensor) -> torch.Tensor:
-            if to_host:
-                out = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=cuda)
-                out.copy_(t, non_blocking=cuda)
-                return out
-            return t.to(target, non_blocking=True)
-
-        if cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                enable_timing=True)
-            start.record()
-        with torch.no_grad():
-            for t in (*self.model.parameters(), *self.model.buffers()):
-                t.data = move(t.data)
-            for st in self.state.optimizer.opt.state.values():
-                for k, v in st.items():
-                    if isinstance(v, torch.Tensor):
-                        st[k] = move(v)
-        if not cuda:
-            return 0.0
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
 
     @property
     def model(self) -> AKIModel:

@@ -61,6 +61,7 @@ class TrainState:
     model: AKIModel
     optimizer: AdamWClip
     step: int = 0
+    offload: object = None      # a parallel.offload.HostOffload (host_offload_params)
 
 
 @dataclasses.dataclass

@@ -61,8 +61,10 @@ Phases, each fatal on failure:
      11's one-request prefills, each timed on the device warm and cold
      (torch.profiler by kernel name; a 64 MB write before each cold call)
      and by CUDA events beside the bound; then 1, 7 and 1101 rows and 7 rows
-     at widths 128 to 8192, with all-zero and huge edge rows; each launch
-     plan held to its mirror (fused_quant.row_plan);
+     at widths 128 to 8192, with all-zero and huge edge rows; then f32 rows
+     (phase 19's policy=F32 serving): request (a)'s rows timed, 1101 rows
+     and 7 rows at each width; each launch plan held to its mirror
+     (fused_quant.row_plan);
  10. the int8-KV decode attention kernel against its plain version at the
      serving cache (32 layers, 48 rows, 704 slots, 32 heads x 96) with
      ragged lengths, both end layers, a live width below the rows and a GQA
@@ -119,8 +121,8 @@ Phases, each fatal on failure:
      whose scores equal a teacher-forced recomputation within one bf16 ulp
      of the logits a step; AKI.answer on PNG bytes equal to generate's text;
      the predict CLI answering 4 requests with 4 slots. Wall times of each;
- 15. the training CLIs at full aki_4b() width and depth in bf16 (the hash
-     tokenizer's layout), on synthetic data made under build/phase15 from a
+ 15. the training CLIs at full aki_4b() width in bf16, CLI_LAYERS of the 32
+     decoder layers (the hash tokenizer's layout), on synthetic data made under build/phase15 from a
      seed: aki_torch.train.pretrain.main on the shipped pretrain.yaml, its
      blip3_kale block (batch 8 x 128 text, 4 webdataset shards of JPEGs of
      random pixels in sizes other than 384) and its mmc4 block enabled as
@@ -131,7 +133,7 @@ Phases, each fatal on failure:
      an empty run dir) over LLaVA-Instruct and VQAv2 files, 3 steps; both
      under the JAX default recompute policy dots. Gates: finite logged
      losses, the K1 / dq / dkv launches of every step equal to cli_launches,
-     the final checkpoint (~47 GB: fp32 weights and AdamW's moments) read
+     the final checkpoint (~13 GB: fp32 weights and AdamW's moments) read
      back memory-mapped equal to the model on a sample of tensors, peak
      memory under 80 GB; step ms, the runner's data ms, spliced tokens/s,
      one profiled step's idle share; each run dir deleted after its gates.
@@ -161,10 +163,13 @@ Phases, each fatal on failure:
      mesh (FSDP2 units per tower layer, Perceiver block and decoder layer,
      bf16 gathers, the clip's norm over shards), ZERO_STEPS steps each held
      to phase 8's under phase 7's loss tolerance with phase 8's launches;
-     then host_offload_params without the group: every parameter and AdamW
-     moment on a pinned host tensor between steps, losses and grad norms
-     bitwise phase 8's, H2D / D2H ms, device memory between steps, the
-     step's peak and the host's RSS. Phase 6 also runs the sequence-parallel
+     ZeRO-3 with host_offload_params under the group, bitwise ZeRO-3's;
+     then host_offload_params without the group, bitwise phase 8's; in
+     both, between steps every storage of the state (parameters, buffers,
+     AdamW moments) empty on the card with its bytes in a pinned host
+     buffer; H2D / D2H ms, device memory between steps (under the group at
+     most the no-group figure + OFFLOAD_GROUP_SLACK), the step's peak and
+     the host's RSS. Phase 6 also runs the sequence-parallel
      all-gather route's shape: the interleaved row padded to a multiple of
      SP_SEQ keys, the last shard's query rows at its offset over all keys;
  18. tensor parallelism on one card: a 1-rank NCCL group and a mesh whose
@@ -181,7 +186,19 @@ Phases, each fatal on failure:
      prefill's (K1 on every tower and decoder layer, not the bf16-P
      attention of phase 11; K5 at every site), its logits against the same
      weights' phase-11 route under phase 11's drift gate, and NEW_TOKENS
-     greedy tokens with K4's launches.
+     greedy tokens with K4's launches;
+ 19. what the JAX package serves beyond phase 11 (int4_and_f32_serving), at
+     full width: W4A8 weights (the decoder and head int4, packed two to a
+     byte; the tower int8) with the int8 KV cache: the decoder's bytes half
+     W8A8's, request (a)'s prefill logits against a fake-quant bf16 model
+     of the same int4 values under phase 11's drift gate (against the float
+     model printed), 177 K5 a prefill, 32 K4 a decode step, no K1; w4
+     weight-only tokens against the fake-quant model's, counted; a
+     long-decode drain (8 slots, 24 requests of budgets 128-256, tail
+     compaction) whose requests all complete, the first 4 held by phase
+     12's teacher-forced gate; policy=F32 over W8A8 weights with the int8
+     KV cache: K5 on f32 rows, K4 on an f32 query, launches, logits against
+     the f32 model under phase 11's gate. The phase's seconds are printed.
 Then one JSON line of kernels, the card line, and the result line.
 """
 
@@ -246,6 +263,9 @@ GRAD_COSINE_MIN = 0.99
 TRAIN_STEPS = 4
 SP_SEQ = 4                # phase 6's sequence-parallel case: the last of 4 shards
 ZERO_STEPS = 3            # phase 17's steps per run, held to phase 8's first three
+# phase 17: what ZeRO-3 + host offload under the group may leave on the card
+# between steps beyond the offload without the group (FSDP2's own buffers)
+OFFLOAD_GROUP_SLACK = 0.1e9
 # Fused quantize kernels against their plain versions on the same bf16 rows:
 # both compute h in f32 but sum the row statistics in another order (and the
 # kernel may contract a multiply-add), so a value at a rounding tie of h / s
@@ -290,6 +310,13 @@ SPREAD_ROUNDS = 5
 # 2 delta. A wrong cache, position or slot gives a token drawn from the
 # wrong context, several std below the best.
 SERVE_FIRST_TOKEN_CHECKS, SERVE_FIRST_TOKEN_MIN, SERVE_GAP_FACTOR = 8, 4, 2.0
+# Phase 19's long-decode drain: 8 slots, 24 requests with budgets drawn from
+# 128-256 (slots free at different steps; completion-aligned admission and
+# tail compaction run most), a cache for the bucket, the image and 256 new
+# tokens; the first 4 held to the one-shot path; the F32 route's new tokens
+LONG_SLOTS, LONG_REQUESTS, LONG_BUDGETS, LONG_MAX_LEN, LONG_CHECKS = 8, 24, (128, 256), 1024, 4
+LONG_PROFILED_TICKS = 4   # the drain's first dispatches, under torch.profiler
+F32_DECODE_TOKENS = 8
 KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd", "fused_quant", "decode_attention",
                   "flash_mma_q8")
 TRAIN_TEXT = 512          # text tokens per training row; one <image> -> 144
@@ -320,6 +347,11 @@ BEAM_ULPS = 1
 # grad_norm must be bitwise equal (the same operations on the same weights;
 # K3 is deterministic); the card's memory
 CLI_STEPS = 3
+# phase 15's decoder depth: the CLIs' whole path at full width but 8 of the
+# 32 decoder layers (PR 14: each checkpoint then ~13 GB instead of 46.8 GB,
+# saved in ~20 s instead of ~70), so that the script, grown by phase 19,
+# stays well inside its time limit
+CLI_LAYERS = 8
 REMAT_TABLE = ("full", "dots", "dots_nowide", "host_offload")
 POLICY_ROUNDS = 3
 PEAK_LIMIT_BYTES = 80e9
@@ -1520,11 +1552,11 @@ def kernel_timings(fn, part: str, cycling=None) -> dict:
     return rec
 
 
-def fused_quant_inputs(op, rows, d, gen, edge=False):
-    """bf16 rows of one fused quantize op and its arguments; ``edge`` makes
-    row 0 all zero and gives row 1 (when there is one) one huge value.
-    silu*mul reads gate and up as the two halves of one (rows, 2d) product,
-    as the decoder hands them over."""
+def fused_quant_inputs(op, rows, d, gen, edge=False, dtype=torch.bfloat16):
+    """Rows of one fused quantize op (bf16 values, held in ``dtype``) and
+    its arguments; ``edge`` makes row 0 all zero and gives row 1 (when
+    there is one) one huge value. silu*mul reads gate and up as the two
+    halves of one (rows, 2d) product, as the decoder hands them over."""
     dev = "cuda"
 
     def bf(*shape, lo=None):
@@ -1536,6 +1568,7 @@ def fused_quant_inputs(op, rows, d, gen, edge=False):
         x[0] = 0
         if rows > 1:
             x[1, 3] = 3e4
+    x = x.to(dtype)
     if op == "silu":
         x, up = x.chunk(2, dim=-1)
     return {"rms": lambda: (x, bf(d, lo=0.5), 1e-5),
@@ -1544,34 +1577,36 @@ def fused_quant_inputs(op, rows, d, gen, edge=False):
             "gelu": lambda: (x, bf(d) * 0.1)}[op]()
 
 
-def fused_quant_bound(op, rows, d) -> tuple[float, str, int, int]:
-    """(bound ms, by, FLOPs, bytes) of one fused quantize launch: each input
-    row and vector read once, q and s written once."""
+def fused_quant_bound(op, rows, d, row_bytes=2) -> tuple[float, str, int, int]:
+    """(bound ms, by, FLOPs, bytes) of one fused quantize launch on rows of
+    ``row_bytes`` a value: each input row and vector read once, q and s
+    written once."""
     n_vec = {"rms": 1, "ln": 2, "silu": 0, "gelu": 1}[op]
     n_rows_in = 2 if op == "silu" else 1
-    nbytes = rows * d * 2 * n_rows_in + n_vec * d * 2 + rows * d + rows * 4
+    nbytes = rows * d * row_bytes * n_rows_in + n_vec * d * 2 + rows * d + rows * 4
     flops = QUANT_OPS_PER_VALUE[op] * rows * d
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
-def fused_quant_case(op, rows, d, gen, edge=False, timed=False) -> dict:
-    """Phase 9: one fused quantize kernel against its plain version on bf16
-    rows (fused_quant_inputs), its launch plan held to the mirror
+def fused_quant_case(op, rows, d, gen, edge=False, timed=False,
+                     dtype=torch.bfloat16) -> dict:
+    """Phase 9: one fused quantize kernel against its plain version on rows
+    of ``dtype`` (fused_quant_inputs), its launch plan held to the mirror
     (fused_quant.row_plan) and every row written; ``timed`` adds the
     kernel's device times warm and cold (kernel_timings) and the plain
     version's beside the bound."""
     from aki_torch.ops import fused_quant as fq
 
     fn, ref = fused_quant_fns(op)
-    args = fused_quant_inputs(op, rows, d, gen, edge)
+    args = fused_quant_inputs(op, rows, d, gen, edge, dtype)
     with time_limit(f"fused quant {op} rows={rows} d={d}", BWD_CASE_SECONDS):
         got = fn(*args)
         torch.cuda.synchronize()
     want = ref(*args)
     dq = (got[0].int() - want[0].int()).abs()
     srel = ((got[1] - want[1]).abs() / want[1]).max().item()
-    plan = fq.kernel_plan(op, rows, d)
+    plan = fq.kernel_plan(op, rows, d, dtype)
     mirror = fq.row_plan(op, rows, d, torch.cuda.get_device_properties(0).multi_processor_count,
                          plan[3])
     ok = (got[0].dtype == torch.int8 and got[1].shape == (rows, 1)
@@ -1581,23 +1616,25 @@ def fused_quant_case(op, rows, d, gen, edge=False, timed=False) -> dict:
         # an all-zero row quantizes to zeros with scale 1 (ln and gelu add a bias)
         ok = ok and bool((got[0][0] == 0).all()) and got[1][0].item() == 1.0
     team, tpb, blocks, per_sm, stages = plan
-    rec = dict(name=op, rows=rows, d=d, edge=edge, max_abs_err=dq.max().item(),
+    rec = dict(name=op, rows=rows, d=d, edge=edge, dtype=str(dtype).split(".")[-1],
+               max_abs_err=dq.max().item(),
                frac_one_step=(dq > 0).float().mean().item(), scale_max_rel_err=srel,
                plan=dict(warps_per_row=team, teams_per_block=tpb, blocks=blocks,
                          blocks_per_sm=per_sm, ring_stages=stages,
                          rows_per_team_max=-(-rows // (blocks * tpb))))
-    log(f"fused quant {op} rows={rows} d={d} edge={edge}: max |q_kernel - q_plain|="
+    log(f"fused quant {op} rows={rows} d={d} {rec['dtype']} edge={edge}: max |q_kernel - "
+        f"q_plain|="
         f"{rec['max_abs_err']} (max {QUANT_STEP_MAX}) fraction one step off="
         f"{rec['frac_one_step']:.3g} scale max rel err={srel:.3g} (max {QUANT_SCALE_RTOL}) "
         f"plan {rec['plan']} (mirror {mirror}) {'ok' if ok else 'FAILED'}")
     if not ok:
         raise SystemExit(f"chip_smoke: fused quant kernel {op} disagrees with the plain version")
     if timed:
-        bound_ms, by, flops, nbytes = fused_quant_bound(op, rows, d)
+        bound_ms, by, flops, nbytes = fused_quant_bound(op, rows, d, args[0].element_size())
         rec.update(kernel_timings(lambda: fn(*args), "fused_quant"))
         rec.update(plain_ms=cuda_ms(lambda: ref(*args), reps=5), library_ms=None,
                    bound_ms=bound_ms, bound_by=by, bound_flops=flops, bound_bytes=nbytes)
-        log(f"  fused quant {op} rows={rows} d={d} " + " ".join(
+        log(f"  fused quant {op} rows={rows} d={d} {rec['dtype']} " + " ".join(
             f"{key}={rec[key]}" for key in ("ms", "device_ms", "cold_device_ms",
                                             "profiler_seen_of", "plain_ms", "bound_ms",
                                             "bound_by", "bound_bytes")))
@@ -1741,9 +1778,13 @@ def fused_quant_phase(cfg, gen) -> dict[str, list]:
     """Phase 9: each fused quantize kernel at the W8A8 serving prefill's
     shape and at the one-request prefills of phase 11 (quant_timing_shapes),
     timed; then edge cases: 1 row, 7 rows, 1101 rows (a block part empty),
-    and 7 rows at each of QUANT_EDGE_WIDTHS, all but 1 row with edge rows."""
+    and 7 rows at each of QUANT_EDGE_WIDTHS, all but 1 row with edge rows.
+    Then the f32 rows of phase 19's policy=F32 serving: request (a)'s
+    prefill rows timed, 1101 rows and 7 rows at each width (the plan, whose
+    ring takes twice the bytes, held to the mirror at each)."""
     fq_cases = {op: [] for op in FUSED_QUANT_REPLACES}
-    for op, rows, d in quant_timing_shapes(cfg):
+    shapes = quant_timing_shapes(cfg)
+    for op, rows, d in shapes:
         fq_cases[op].append(fused_quant_case(op, rows, d, gen, edge=True, timed=True))
         free_cuda()
     for op, cases_op in fq_cases.items():
@@ -1752,6 +1793,14 @@ def fused_quant_phase(cfg, gen) -> dict[str, list]:
                      *(fused_quant_case(op, n, d, gen, edge=True) for n in (7, 1101)),
                      *(fused_quant_case(op, 7, w, gen, edge=True) for w in QUANT_EDGE_WIDTHS
                        if w != d)]
+        free_cuda()
+    f32 = torch.float32
+    for op, cases_op in fq_cases.items():
+        d, one = cases_op[0]["d"], cases_op[1]["rows"]       # request (a)'s rows
+        cases_op += [fused_quant_case(op, one, d, gen, edge=True, timed=True, dtype=f32),
+                     fused_quant_case(op, 1101, d, gen, edge=True, dtype=f32),
+                     *(fused_quant_case(op, 7, w, gen, edge=True, dtype=f32)
+                       for w in QUANT_EDGE_WIDTHS)]
         free_cuda()
     return fq_cases
 
@@ -2010,6 +2059,60 @@ def prefill_attention_times(cfg, gen) -> dict:
     return out
 
 
+def teacher_forced(cfg, model, traffic, results, n: int, max_len: int,
+                   one_shot: bool = False) -> list[dict]:
+    """The served tokens of the first ``n`` requests of ``traffic`` against
+    the one-shot path on the same weights (int8 KV): the drift of each
+    request's prefill logits in a batched prefill of the ``n`` (padded to
+    the bucket, as the server admits them) against its prefill alone, then
+    the one-shot path fed the served tokens (teacher forcing: at each
+    position the gap of the served token's logit below the best, over the
+    std); with ``one_shot`` also a one-shot generate's tokens."""
+    from aki_torch.infer.engine import decode_step, generate, prefill
+
+    imgs = torch.stack([torch.from_numpy(px) for _, px, _ in traffic[:n]]).cuda()
+    imgs = imgs.float() / 127.5 - 1.0
+    ids_b = torch.full((n, SERVE_BUCKET), cfg.pad_token_id, dtype=torch.int32)
+    valid_b = torch.zeros_like(ids_b)
+    for i, (ids, _, _) in enumerate(traffic[:n]):
+        ids_b[i, :len(ids)] = torch.tensor(ids)
+        valid_b[i, :len(ids)] = 1
+    batched = prefill(model, ids_b, imgs, valid_b, max_len, kv_int8=True).last_logits
+    checks = []
+    for i, (ids, _, m) in enumerate(traffic[:n]):
+        ids_t = torch.tensor([ids], dtype=torch.int32)
+        args = (ids_t, imgs[i:i + 1], torch.ones_like(ids_t))
+        state = prefill(model, *args, max_len, kv_int8=True)
+        drift = logit_drift(batched[i], state.last_logits[0])
+        first = int(state.last_logits[0].argmax())
+        served = results[i]
+        # teacher forcing: at each position, the one-shot's logits given
+        # the served tokens before it
+        gaps, margins = [], []
+        for pos, tok in enumerate(served):
+            o = state.last_logits[0]
+            top2, sd = o.topk(2).values, o.std()
+            gaps.append(((top2[0] - o[tok]) / sd).item())
+            margins.append(((top2[0] - top2[1]) / sd).item())
+            if pos + 1 < len(served):
+                state = decode_step(model, state, torch.tensor([tok], device="cuda"))
+        del state
+        c = dict(request=i, budget=m, served=len(served), first_equal=first == served[0],
+                 batched_drift=drift, top2_margin_over_std=margins[0],
+                 served_equal_argmax=sum(g == 0.0 for g in gaps), max_gap_over_std=max(gaps),
+                 gap_at=gaps.index(max(gaps)))
+        if one_shot:
+            one, _ = generate(model, *args, m, max_len, kv_int8=True)
+            one = one[0].tolist()
+            first_diff = next((j for j, (x, y) in enumerate(zip(one, served)) if x != y), None)
+            c.update(later_equal=sum(x == y for x, y in zip(one[1:], served[1:])), later=m - 1,
+                     first_difference=first_diff,
+                     margin_at_first_difference=None if first_diff is None
+                     else margins[first_diff])
+        checks.append(c)
+    return checks
+
+
 def serve_drain(cfg, model) -> dict:
     """Phase 12: the serving engine in the bench.py configuration drains
     SERVE_REQUESTS requests under torch.profiler (device activity only);
@@ -2021,7 +2124,6 @@ def serve_drain(cfg, model) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from aki_torch.infer.engine import decode_step, generate, prefill
     from aki_torch.infer.server import ServingEngine
 
     eng = ServingEngine(model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
@@ -2089,49 +2191,10 @@ def serve_drain(cfg, model) -> dict:
             raise SystemExit(f"chip_smoke: requests {bad} did not complete with their budget")
         if counts != want:
             raise SystemExit(f"chip_smoke: drain launches {counts}, want {want}")
-        # the server's tokens against the one-shot path of the same request:
-        # the drift of its logits in a batched prefill of the checked
-        # requests (padded to the bucket, as the server admits them), a
-        # one-shot generate, and the one-shot path fed the served tokens
-        n = SERVE_FIRST_TOKEN_CHECKS
-        imgs = torch.stack([torch.from_numpy(px) for _, px, _ in traffic[:n]]).cuda()
-        imgs = imgs.float() / 127.5 - 1.0
-        ids_b = torch.full((n, SERVE_BUCKET), cfg.pad_token_id, dtype=torch.int32)
-        valid_b = torch.zeros_like(ids_b)
-        for i, (ids, _, _) in enumerate(traffic[:n]):
-            ids_b[i, :len(ids)] = torch.tensor(ids)
-            valid_b[i, :len(ids)] = 1
-        batched = prefill(model, ids_b, imgs, valid_b, SERVE_MAX_LEN, kv_int8=True).last_logits
-        checks = []
-        for i, (ids, _, m) in enumerate(traffic[:n]):
-            ids_t = torch.tensor([ids], dtype=torch.int32)
-            args = (ids_t, imgs[i:i + 1], torch.ones_like(ids_t))
-            state = prefill(model, *args, SERVE_MAX_LEN, kv_int8=True)
-            drift = logit_drift(batched[i], state.last_logits[0])
-            one, _ = generate(model, *args, m, SERVE_MAX_LEN, kv_int8=True)
-            one = one[0].tolist()
-            served = results[i]
-            # teacher forcing: at each position, the one-shot's logits given
-            # the served tokens before it
-            gaps, margins = [], []
-            for pos, tok in enumerate(served):
-                o = state.last_logits[0]
-                top2, sd = o.topk(2).values, o.std()
-                gaps.append(((top2[0] - o[tok]) / sd).item())
-                margins.append(((top2[0] - top2[1]) / sd).item())
-                if pos + 1 < len(served):
-                    state = decode_step(model, state, torch.tensor([tok], device="cuda"))
-            del state
-            first_diff = next((j for j, (x, y) in enumerate(zip(one, served)) if x != y), None)
-            checks.append(dict(
-                request=i, budget=m, first_equal=one[0] == served[0],
-                later_equal=sum(x == y for x, y in zip(one[1:], served[1:])), later=m - 1,
-                first_difference=first_diff, batched_drift=drift,
-                top2_margin_over_std=margins[0],
-                margin_at_first_difference=None if first_diff is None else margins[first_diff],
-                served_equal_argmax=sum(g == 0.0 for g in gaps), max_gap_over_std=max(gaps),
-                gap_at=gaps.index(max(gaps))))
+        checks = teacher_forced(cfg, model, traffic, results, SERVE_FIRST_TOKEN_CHECKS,
+                                SERVE_MAX_LEN, one_shot=True)
         rec["one_shot_checks"] = checks
+        n = SERVE_FIRST_TOKEN_CHECKS
         n_equal = sum(c["first_equal"] for c in checks)
         delta = max(c["batched_drift"][1] for c in checks)
         gap_max = SERVE_GAP_FACTOR * delta
@@ -2865,6 +2928,13 @@ def loading_and_consumers() -> dict:
     return out
 
 
+def cli_depth(cfg):
+    """The CLIs' model at phase 15's decoder depth (CLI_LAYERS)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, phi3=dataclasses.replace(cfg.phi3, num_layers=CLI_LAYERS))
+
+
 def cli_launches(cfg, n_datasets: int) -> dict[str, int]:
     """K1, dq and dkv launches of one optimizer step over ``n_datasets``
     batches, from the code: per batch the tower runs once over all its
@@ -2896,8 +2966,8 @@ def counted_trainer(record: dict):
     from aki_torch.train.runner import Trainer
 
     class CountedTrainer(Trainer):
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
+        def __init__(self, model_cfg, *args, **kw):
+            super().__init__(cli_depth(model_cfg), *args, **kw)
             inner = record["step_fn"] = self.step_fn
 
             def step_fn(state, batch):
@@ -3091,8 +3161,8 @@ def policy_rows(cfg, trainer, batch, card: str) -> list[dict]:
 
 
 def training_clis(card: str) -> dict:
-    """Phase 15: the training CLIs at full aki_4b() width and depth in bf16
-    (the hash tokenizer's layout, as the shipped YAMLs' tokenizer_path:
+    """Phase 15: the training CLIs at full aki_4b() width in bf16, at
+    CLI_LAYERS decoder layers (cli_depth) (the hash tokenizer's layout, as the shipped YAMLs' tokenizer_path:
     null gives), on synthetic data under build/phase15: the pretrain CLI on
     its shipped pretrain.yaml over the paired and the interleaved dataset
     together, the SFT CLI on the shipped training_config over two datasets,
@@ -3107,7 +3177,7 @@ def training_clis(card: str) -> dict:
     from aki_torch.data.tokenizer import HashTokenizer
     from aki_torch.train import pretrain, sft
 
-    cfg = config_for_tokenizer(aki_4b(), HashTokenizer().info)
+    cfg = cli_depth(config_for_tokenizer(aki_4b(), HashTokenizer().info))
     base = os.path.join(ROOT, "build", "phase15")
     shutil.rmtree(base, ignore_errors=True)
     data = os.path.join(base, "data")
@@ -3681,6 +3751,19 @@ def zero_and_offload(cfg, batches, train, card: str) -> dict:
             out.append(st)
         return out
 
+    def on_host(t):
+        # every storage of the state (parameters, buffers, AdamW moments and
+        # counts) empty on the card, its bytes in a pinned host buffer
+        h2d, d2h = t.offload_ms[-1]
+        off = t.state.offload
+        storages = off.storages()
+        pinned = (bool(storages) and all(st.nbytes() == 0 for st in storages)
+                  and len(off.parked) == len(off.host)
+                  and all(buf.is_pinned() for buf in off.host.values()))
+        return dict(h2d_ms=round(h2d, 3), d2h_ms=round(d2h, 3), host_rss_gb=round(
+            host_rss_gb(), 3), pinned=pinned, n_storages=len(storages),
+            host_gb=round(sum(b.numel() for b in off.host.values()) / 1e9, 3))
+
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -3711,6 +3794,13 @@ def zero_and_offload(cfg, batches, train, card: str) -> dict:
                          + cfg.phi3.num_layers + 1) or sharded != res[label]["n_params"]:
                 raise SystemExit(f"chip_smoke: phase 17 {label}: the model is not sharded "
                                  "unit by unit")
+        # ZeRO-3 with the state on the host between steps, under the group
+        t = trainer(fsdp_strategy="full", host_offload_params=True)
+        res["zero3_offload"] = dict(steps=run_steps(
+            t, "zero3 + host_offload_params (1-rank mesh)", on_host))
+        t.metrics.close()
+        del t
+        free_cuda()
         dist.destroy_process_group()
     finally:
         if dist.is_initialized():
@@ -3721,15 +3811,6 @@ def zero_and_offload(cfg, batches, train, card: str) -> dict:
             else:
                 os.environ[k] = v
         shutil.rmtree(run_dir, ignore_errors=True)
-
-    def on_host(t):
-        h2d, d2h = t.offload_ms[-1]
-        params = list(t.model.parameters())
-        moments = [v for st in t.state.optimizer.opt.state.values() for v in st.values()
-                   if isinstance(v, torch.Tensor)]
-        pinned = all(x.device.type == "cpu" and x.is_pinned() for x in params + moments)
-        return dict(h2d_ms=round(h2d, 3), d2h_ms=round(d2h, 3), host_rss_gb=round(
-            host_rss_gb(), 3), pinned=pinned, n_host_tensors=len(params) + len(moments))
 
     try:
         t = trainer(host_offload_params=True)
@@ -3743,16 +3824,30 @@ def zero_and_offload(cfg, batches, train, card: str) -> dict:
         for st in res[label]["steps"]:
             if max(st["loss_rel"], st["grad_norm_rel"]) > LOSS_RTOL:
                 raise SystemExit(f"chip_smoke: phase 17 {label} differs from phase 8")
-    for label in ("zero3", "zero2", "offload"):
+    labels = ("zero3", "zero2", "offload", "zero3_offload")
+    for label in labels:
         if any(st["launches"] != want for st in res[label]["steps"]):
             raise SystemExit(f"chip_smoke: phase 17 {label}: launches a step differ from {want}")
-    off = res["offload"]["steps"]
-    if not all(st["pinned"] for st in off):
+    off, off3 = res["offload"]["steps"], res["zero3_offload"]["steps"]
+    if not all(st["pinned"] for st in off + off3):
         raise SystemExit("chip_smoke: phase 17: the offloaded state is not pinned on the host")
     if any(st["loss"] != r["loss"] or st["grad_norm"] != r["grad_norm"]
            for st, r in zip(off, ref)):
         raise SystemExit("chip_smoke: phase 17: host_offload_params changed the numbers")
-    res["launches"] = {k: sum(st["launches"][k] for label in ("zero3", "zero2", "offload")
+    if any(st["loss"] != r["loss"] or st["grad_norm"] != r["grad_norm"]
+           for st, r in zip(off3, res["zero3"]["steps"])):
+        raise SystemExit("chip_smoke: phase 17: host_offload_params under the group changed "
+                         "ZeRO-3's numbers")
+    between = max(st["between_bytes"] for st in off3)
+    between_max = max(st["between_bytes"] for st in off) + OFFLOAD_GROUP_SLACK
+    res["zero3_offload"].update(between_max_bytes=between, gate_bytes=between_max)
+    log(f"phase 17 zero3 + host_offload_params: between steps {between / 1e9:.3f} GB on the "
+        f"card (at most {between_max / 1e9:.3f}: the no-group offload's + "
+        f"{OFFLOAD_GROUP_SLACK / 1e9} GB); losses and grad norms bitwise zero3's")
+    if between > between_max:
+        raise SystemExit("chip_smoke: phase 17: the offloaded state under the group leaves "
+                         "more on the card between steps than without the group")
+    res["launches"] = {k: sum(st["launches"][k] for label in labels
                               for st in res[label]["steps"]) for k in want}
     log(card)
     return res
@@ -3914,6 +4009,292 @@ def tensor_parallel_one_card(cfg, batches, train, prompts, card: str) -> dict:
     res["int8_launches"] = {k: gen_counts[k] for k in ("ln", "gelu", "rms", "silu", "decode")}
     log(card)
     return res
+
+
+def quantized_linears(model) -> list[tuple]:
+    """(parent, name, QuantTensor) of every quantized projection of the
+    decoder and the tower, and the head's."""
+    from aki_torch.models.quant import is_quantized
+
+    out = []
+    for layers in (model.lang_model.model.layers, model.vision_encoder.encoder["layers"]):
+        for layer in layers:
+            for parent in (layer.self_attn, layer.mlp):
+                out += [(parent, n, m) for n, m in parent.items() if is_quantized(m)]
+    return out
+
+
+def fake_quant(model) -> list[tuple]:
+    """For each int4 QuantTensor of the decoder: (parent, name, quantized,
+    a bf16 ``nn.Linear`` holding unpack(q) * s and the bias), the
+    fake-quant model's projection; for the head (which the model reads as
+    a QuantTensor) an int8 QuantTensor of the unpacked values and the same
+    scales: no int4 packing is left in the fake-quant model."""
+    from aki_torch.models.quant import QuantTensor
+
+    head = model.lang_model.lm_head
+    w = head.quant
+    out = [(head, "quant", w, QuantTensor(w.int8().contiguous(), w.s, w.a8, w.bias, bits=8))]
+    for parent, name, w in quantized_linears(model):
+        if w.bits != 4:
+            continue
+        lin = torch.nn.Linear(w.in_features, w.q.shape[0], bias=w.bias is not None,
+                              device="cuda", dtype=torch.bfloat16)
+        with torch.no_grad():
+            lin.weight.copy_((w.int8().float() * w.s.float()[:, None]).to(torch.bfloat16))
+            if w.bias is not None:
+                lin.bias.copy_(w.bias)
+        lin.requires_grad_(False)
+        out.append((parent, name, w, lin))
+    return out
+
+
+def use_modules(swaps, fake: bool) -> None:
+    for parent, name, w, lin in swaps:
+        setattr(parent, name, lin if fake else w)
+
+
+def set_a8(model, a8: bool) -> None:
+    """w4a8 <-> w4 (and the tower's w8a8 <-> w8): the same ints and scales,
+    the activations quantized or not."""
+    for _, _, w in quantized_linears(model):
+        w.a8 = a8
+    model.lang_model.lm_head.quant.a8 = a8
+
+
+def long_traffic(cfg) -> list[tuple]:
+    """Phase 19's drain: phase 12's prompts (256-511 text tokens, one uint8
+    image each) with budgets of LONG_BUDGETS drawn from their own seed."""
+    import numpy as np
+
+    budgets = np.random.RandomState(19).randint(LONG_BUDGETS[0], LONG_BUDGETS[1] + 1,
+                                                LONG_REQUESTS)
+    return [(ids, px, int(m)) for (ids, px, _), m in
+            zip(serving_prompts(cfg, LONG_REQUESTS), budgets)]
+
+
+def long_drain(cfg, model) -> dict:
+    """Phase 19's long-decode drain: a LONG_SLOTS-slot int8-KV engine with
+    compaction over LONG_REQUESTS requests whose budgets differ (slots
+    free at different steps, admissions interleave with decode); every
+    request must complete with its budget, and the first LONG_CHECKS are
+    held to the one-shot path by phase 12's teacher-forced gate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aki_torch.infer.server import ServingEngine
+
+    traffic = long_traffic(cfg)
+    eng = ServingEngine(model, num_slots=LONG_SLOTS, max_len=LONG_MAX_LEN,
+                        prompt_bucket=SERVE_BUCKET, admit_batch=LONG_SLOTS,
+                        admit_policy="batched", decode_chunk=8, kv_int8=True,
+                        image_uint8=True, compact_tail=True, upload_chunk=8)
+    try:
+        eng.warmup()
+        torch.cuda.synchronize()
+        eng.dispatch_log.clear()
+        eng.decode_dispatches = 0
+        zero_int8_launch_counts()
+        # the profiler sees the drain's first LONG_PROFILED_TICKS dispatches
+        # (the whole drain's ~2M device events would take minutes to parse)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            reqs = [eng.submit(ids, px, max_new_tokens=m) for ids, px, m in traffic]
+            ticks = 0
+            while eng.has_work() and ticks < LONG_PROFILED_TICKS:
+                if eng.step():
+                    ticks += 1
+                else:
+                    time.sleep(0.001)
+            torch.cuda.synchronize()
+            window = int8_launch_counts()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        counts = int8_launch_counts()
+        results = [r.result(timeout=60) for r in reqs]
+        n_prefill = sum(1 for kind, _, _ in eng.dispatch_log if kind == "prefill")
+    finally:
+        eng.close()
+    seen = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for kname in ("decode_attention_kernel", "fused_quant_kernel"):
+                if kname in e.name:
+                    seen[kname] = seen.get(kname, 0) + 1
+    n_tokens = sum(len(r) for r in results)
+    rec = dict(requests=LONG_REQUESTS, slots=LONG_SLOTS, budgets=[m for _, _, m in traffic],
+               drain_s=drain_s, tokens=n_tokens, tokens_per_s=n_tokens / drain_s,
+               prefill_dispatches=n_prefill, decode_dispatches=eng.decode_dispatches,
+               launches=counts, profiled_ticks=LONG_PROFILED_TICKS, seen_of_issued={
+                   "decode_attention_kernel": (seen.get("decode_attention_kernel", 0),
+                                               window["decode"]),
+                   "fused_quant_kernel": (seen.get("fused_quant_kernel", 0),
+                                          sum(window[op] for op in FUSED_QUANT_REPLACES))})
+    log("phase 19 long drain: " + " ".join(f"{k}={v}" for k, v in rec.items()))
+    bad = [i for i, (res, (_, _, m)) in enumerate(zip(results, traffic)) if len(res) != m]
+    if bad:
+        raise SystemExit(f"chip_smoke: phase 19 long drain: requests {bad} did not complete "
+                         "with their budget")
+    checks = teacher_forced(cfg, model, traffic, results, LONG_CHECKS, LONG_MAX_LEN)
+    delta = max(c["batched_drift"][1] for c in checks)
+    gap_max = SERVE_GAP_FACTOR * delta
+    rec.update(one_shot_checks=checks, one_shot_gate=dict(delta_over_std=delta,
+                                                          gap_max_over_std=gap_max))
+    log(f"phase 19 long drain vs one-shot: teacher-forced, the one-shot's best logit leads "
+        f"each served token by at most {max(c['max_gap_over_std'] for c in checks):.4g} std "
+        f"(max {SERVE_GAP_FACTOR} x delta {delta:.4g} = {gap_max:.4g}): {checks}")
+    if any(c["max_gap_over_std"] > gap_max for c in checks):
+        raise SystemExit("chip_smoke: phase 19: a served token of the long drain trails the "
+                         "one-shot path's best logit by more than batching can move it")
+    return rec
+
+
+def int4_and_f32_serving(cfg, prompts, card: str) -> dict:
+    """Phase 19: what the JAX package serves beyond phase 11, at full AKI-4B
+    width. (a) W4A8 weights (the decoder and head int4, the tower int8)
+    with the int8 KV cache: the decoder's bytes against W8A8's, request
+    (a)'s prefill logits against a fake-quant bf16 model of the same int4
+    values (unpack(q) * s as bf16 nn.Linears; phase 11's drift gate) and
+    the float model (printed), NEW_TOKENS tokens with 177 K5 a prefill, 32
+    K4 a decode step and no K1; (b) w4 weight-only: NEW_TOKENS greedy
+    tokens against the fake-quant model's, counted; (c) the long-decode
+    drain (long_drain); (d) policy=F32 with W8A8 weights and the int8 KV
+    cache: one prefill and F32_DECODE_TOKENS tokens, K5 on f32 rows (177 a
+    prefill) and K4 (32 a step), the logits against the f32 float model
+    under phase 11's gate."""
+    from aki_torch.infer.engine import generate, prefill
+    from aki_torch.models.aki import AKIModel
+    from aki_torch.models.common import F32
+    from aki_torch.models.quant import quantize_params
+
+    t_phase = time.perf_counter()
+    n_tower, n_dec = cfg.siglip.num_layers, cfg.phi3.num_layers
+    per_prefill = {"ln": 2 * n_tower, "gelu": n_tower, "rms": 2 * n_dec, "silu": n_dec}
+    a = prompts[0]
+    args = (a["ids"], a["image"], a["valid"], a["max_len"])
+
+    def gen_tokens(n, **kw):
+        return generate(model, a["ids"], a["image"], a["valid"], n, a["max_len"],
+                        kv_int8=True, **kw)
+
+    model = AKIModel(cfg, device="cuda", dtype=torch.bfloat16,
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(False)
+    float_logits = prefill(model, *args).last_logits
+    quantize_params(model, mode="w4a8", vision=True)
+    free_cuda()
+    dec = [w for _, _, w in quantized_linears(model) if w.bits == 4]
+    dec.append(model.lang_model.lm_head.quant)
+    if not all(w.bits == 8 for _, _, w in quantized_linears(model)
+               if w not in dec) or len(dec) != 4 * cfg.phi3.num_layers + 1:
+        raise SystemExit("chip_smoke: phase 19: w4a8 must make the decoder and head int4 and "
+                         "leave the tower int8")
+    q4 = sum(w.q.numel() for w in dec)
+    q8 = sum(w.q.shape[0] * w.in_features for w in dec)      # int8: a byte a value
+    scales = sum(w.s.numel() * w.s.element_size() for w in dec)
+    rec = dict(decoder_bytes=dict(w4=q4 + scales, w8=q8 + scales, scales=scales,
+                                  int4_values=q4, int8_values=q8))
+    log(f"phase 19 decoder + head quantized bytes: w4a8 {(q4 + scales) / 1e9:.3f} GB, w8a8 "
+        f"{(q8 + scales) / 1e9:.3f} GB (scales {scales / 1e9:.4f} GB); "
+        f"memory_allocated_gb={torch.cuda.memory_allocated() / 1e9:.3f}")
+    if 2 * q4 != q8 or not all(w.q.dtype == torch.int8 for w in dec):
+        raise SystemExit("chip_smoke: phase 19: the int4 weights are not half the int8 bytes")
+
+    # (a) w4a8 prefill and generate
+    zero_int8_launch_counts()
+    w4a8_logits = prefill(model, *args, kv_int8=True).last_logits
+    torch.cuda.synchronize()
+    counts = int8_launch_counts()
+    zero_int8_launch_counts()
+    toks_a8, _ = gen_tokens(NEW_TOKENS)
+    gen_counts = int8_launch_counts()
+    swaps = fake_quant(model)
+    use_modules(swaps, fake=True)
+    fake_logits = prefill(model, *args, kv_int8=True).last_logits
+    d_fake, d_float = logit_drift(w4a8_logits, fake_logits), logit_drift(w4a8_logits,
+                                                                         float_logits)
+    # (b) w4 weight-only decode against the fake-quant model (the tower
+    # weight-only int8 in both)
+    set_a8(model, False)
+    fake_toks, _ = gen_tokens(NEW_TOKENS)
+    use_modules(swaps, fake=False)
+    del swaps
+    free_cuda()
+    set_a8(model, False)
+    w4_toks, _ = gen_tokens(NEW_TOKENS)
+    set_a8(model, True)
+    equal = sum(x == y for x, y in zip(w4_toks[0].tolist(), fake_toks[0].tolist()))
+    want_gen = {**per_prefill, "decode": n_dec * NEW_TOKENS, "flash_fwd": 0}
+    rec["w4a8"] = dict(prefill_launches=counts, generate_launches=gen_counts,
+                       drift_vs_fake_quant=d_fake, drift_vs_float=d_float,
+                       argmax_equal_fake=bool(w4a8_logits.argmax() == fake_logits.argmax()),
+                       tokens=toks_a8[0].tolist())
+    rec["w4"] = dict(tokens=w4_toks[0].tolist(), fake_quant_tokens=fake_toks[0].tolist(),
+                     equal=equal, of=NEW_TOKENS)
+    log(f"phase 19 w4a8 + int8 KV (request a): prefill launches {counts} (want "
+        f"{per_prefill}, no K4, no K1), generate launches {gen_counts} (want {want_gen}); "
+        f"prefill logits drift mean/max vs the fake-quant bf16 model {d_fake} (gate < "
+        f"{DRIFT_MEAN_MAX} / {DRIFT_MAX_MAX}), vs the float bf16 model {d_float} (printed)")
+    log(f"phase 19 w4 weight-only: {equal} of {NEW_TOKENS} tokens equal to the fake-quant "
+        f"model's: {rec['w4']}")
+    if not all(torch.isfinite(x).all() for x in (w4a8_logits, fake_logits)):
+        raise SystemExit("chip_smoke: phase 19: non-finite w4a8 logits")
+    if d_fake[0] >= DRIFT_MEAN_MAX or d_fake[1] >= DRIFT_MAX_MAX:
+        raise SystemExit("chip_smoke: phase 19: w4a8 prefill logits drift past the gate from "
+                         "the fake-quant model")
+    if {op: counts[op] for op in per_prefill} != per_prefill or counts["decode"] or \
+            counts["flash_fwd"] or gen_counts != want_gen:
+        raise SystemExit(f"chip_smoke: phase 19 w4a8 launches {counts} / {gen_counts}")
+    del float_logits, w4a8_logits, fake_logits
+
+    # (c) the long-decode drain
+    rec["long_drain"] = long_drain(cfg, model)
+    del model
+    free_cuda()
+
+    # (d) policy=F32 over W8A8 weights with the int8 KV cache
+    model = AKIModel(cfg, device="cuda", dtype=torch.bfloat16,
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(False)
+    model.float()                         # bf16-born weights: the scales are W8A8's
+    f32_logits = prefill(model, *args, policy=F32, use_flash=False).last_logits
+    quantize_params(model, mode="w8a8", vision=True)
+    free_cuda()
+    zero_int8_launch_counts()
+    q_logits = prefill(model, *args, policy=F32, kv_int8=True).last_logits
+    torch.cuda.synchronize()
+    f32_counts = int8_launch_counts()
+    zero_int8_launch_counts()
+    f32_toks, f32_num = gen_tokens(F32_DECODE_TOKENS, policy=F32)
+    f32_gen = int8_launch_counts()
+    d_f32 = logit_drift(q_logits, f32_logits)
+    want_f32 = {**per_prefill, "decode": n_dec * F32_DECODE_TOKENS, "flash_fwd": 0}
+    rec["f32_w8a8"] = dict(prefill_launches=f32_counts, generate_launches=f32_gen,
+                           logits_dtype=str(q_logits.dtype), drift_vs_f32=d_f32,
+                           tokens=f32_toks[0].tolist())
+    log(f"phase 19 policy=F32 W8A8 + int8 KV (request a): prefill launches {f32_counts}, "
+        f"generate launches {f32_gen} (want {want_f32}); logits {q_logits.dtype}, drift "
+        f"mean/max vs the f32 float model {d_f32} (gate < {DRIFT_MEAN_MAX} / "
+        f"{DRIFT_MAX_MAX}); tokens {rec['f32_w8a8']['tokens']}")
+    if q_logits.dtype != torch.float32 or not torch.isfinite(q_logits).all():
+        raise SystemExit("chip_smoke: phase 19: F32 int8 logits not finite f32")
+    if d_f32[0] >= DRIFT_MEAN_MAX or d_f32[1] >= DRIFT_MAX_MAX:
+        raise SystemExit("chip_smoke: phase 19: F32 int8 prefill logits drift past the gate")
+    if {op: f32_counts[op] for op in per_prefill} != per_prefill or f32_counts["decode"] or \
+            f32_counts["flash_fwd"] or f32_gen != want_f32:
+        raise SystemExit(f"chip_smoke: phase 19 F32 launches {f32_counts} / {f32_gen}")
+    if int(f32_num[0]) != F32_DECODE_TOKENS or not all(
+            0 <= x < cfg.output_vocab for x in rec["f32_w8a8"]["tokens"]):
+        raise SystemExit("chip_smoke: phase 19: F32 int8 tokens out of shape or range")
+    del model, f32_logits, q_logits
+    free_cuda()
+    runs = [counts, gen_counts, rec["long_drain"]["launches"], f32_counts, f32_gen]
+    rec["launches"] = {k: sum(r[k] for r in runs) for k in (*FUSED_QUANT_REPLACES, "decode")}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19 seconds={rec['seconds']:.1f}")
+    log(card)
+    return rec
 
 
 def main() -> int:
@@ -4210,6 +4591,11 @@ def main() -> int:
     tp_one = tensor_parallel_one_card(cfg, batches, train, int8_prompts, card)
     for k in ("fwd", "dq", "dkv"):
         v_launch[k] += tp_one["launches"][k]
+    free_cuda()
+
+    # 19. int4 weights (w4a8, w4), the long-decode drain, f32 activations
+    # over int8 weights
+    int4 = int4_and_f32_serving(cfg, int8_prompts, card)
 
     main_cases = [c for c in cases if "ms" in c]
     head = next(c for c in main_cases if c["name"] == "decoder_prefill_a")
@@ -4288,7 +4674,7 @@ def main() -> int:
     } for kn in ("dq", "dkv")],
         "backward_cases": bwd, "whole_model": grads, "whole_model_interleaved": grads_inter,
         "training_clis": clis, "moe_and_flamingo": variants, "zero_and_offload": zero,
-        "tensor_parallel": tp_one,
+        "tensor_parallel": tp_one, "int4_and_f32_serving": int4,
         "train": {k: train[k] for k in ("steps", "peak_bytes", "tokens_per_step")}}
     int8_runs = ([r["launches"] for r in int8_gen["requests"]] + [serve["launches"]]
                  + [tp_one["int8_launches"]])
@@ -4298,11 +4684,12 @@ def main() -> int:
     record["kernels"] += [{
         "name": "decode_attention", "route": "cuda",
         "source": "aki_torch/csrc/decode_attention.cu", "replaces": K4_REPLACES,
-        "launches": sum(c["decode"] for c in int8_runs),
+        "launches": sum(c["decode"] for c in int8_runs) + int4["launches"]["decode"],
         "launches_by_path": {"int8_generate": sum(r["launches"]["decode"]
                                                   for r in int8_gen["requests"]),
                              "serve": serve["launches"]["decode"],
-                             "tensor_parallel": tp_one["int8_launches"]["decode"]},
+                             "tensor_parallel": tp_one["int8_launches"]["decode"],
+                             "int4_and_f32_serving": int4["launches"]["decode"]},
         "max_abs_err": max(c["max_abs_err"] for c in dec_cases),
         **{k: k4["full"][k] for k in timing_keys},
         "shape": "serving cache 32x48x704x3072, all rows at 704 keys", "full": k4["full"],
@@ -4320,16 +4707,20 @@ def main() -> int:
     }] + [{
         "name": f"fused_quant_{op}", "route": "cuda", "source": "aki_torch/csrc/fused_quant.cu",
         "replaces": FUSED_QUANT_REPLACES[op],
-        "launches": sum(c[op] for c in int8_runs),
+        "launches": sum(c[op] for c in int8_runs) + int4["launches"][op],
         "launches_by_path": {"int8_generate": sum(r["launches"][op]
                                                   for r in int8_gen["requests"]),
                              "serve": serve["launches"][op],
-                             "tensor_parallel": tp_one["int8_launches"][op]},
+                             "tensor_parallel": tp_one["int8_launches"][op],
+                             "int4_and_f32_serving": int4["launches"][op]},
         "max_abs_err": max(c["max_abs_err"] for c in fq_cases[op]),
         **{k: fq_cases[op][0][k] for k in timing_keys},
         "shape": f"{fq_cases[op][0]['rows']}x{fq_cases[op][0]['d']}",
         "one_request": [{k: c[k] for k in ("rows", "d", *timing_keys)}
-                        for c in fq_cases[op][1:] if "device_ms" in c],
+                        for c in fq_cases[op][1:]
+                        if "device_ms" in c and c["dtype"] == "bfloat16"],
+        "f32_rows": [{k: c[k] for k in ("rows", "d", *timing_keys)}
+                     for c in fq_cases[op] if "device_ms" in c and c["dtype"] == "float32"],
         "library_note": "no single PyTorch call computes the op and the per-row int8 quantize",
         "cases": fq_cases[op],
     } for op in FUSED_QUANT_REPLACES]

@@ -46,7 +46,7 @@ from exp_torch.decode_ab import build  # noqa: E402
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_quant.argtypes = [i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    lib.fused_quant.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
     lib.fused_quant.restype = i
     lib.fused_quant_error_string.argtypes = [i]
     lib.fused_quant_error_string.restype = ctypes.c_char_p

@@ -7,6 +7,8 @@ whole tensors that need a gather."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -82,6 +84,32 @@ def state_numpy(trainer: Trainer) -> dict:
     return dict(weights=weights, moments=moments, step=trainer.state.step)
 
 
+def offload_run(trainer: Trainer, weights: str, batch) -> dict:
+    """3 steps of a ``host_offload_params`` Trainer: their metrics; after
+    each, whether every storage of the rank's state is empty with its bytes
+    in a host buffer; a checkpoint saved while the state is on the host (and
+    whether it went back after the save); then a resume from that checkpoint
+    (offloaded too) and its next step."""
+    off = trainer.state.offload
+    metrics, empty = [], []
+    for _ in range(3):
+        m = trainer.step_fn(trainer.state, trainer.put_batch(batch))
+        metrics.append({k: float(v) for k, v in m.items()})
+        sts = off.storages()
+        empty.append(bool(sts) and all(st.nbytes() == 0 for st in sts)
+                     and {st._cdata for st, _ in off.parked} == set(off.host)
+                     and all(off.host[st._cdata].numel() for st, _ in off.parked))
+    path = trainer.ckpt.save(trainer.state, epoch=0)
+    back = all(st.nbytes() == 0 for st in off.storages())
+    resumed = Trainer(CFG, dataclasses.replace(trainer.cfg, training_mode="resume"),
+                      model=load_model(weights), device="cpu", metrics=NoMetrics())
+    step4 = {k: float(v) for k, v in
+             resumed.step_fn(resumed.state, resumed.put_batch(batch)).items()}
+    return dict(metrics=metrics, empty_between_steps=empty, ckpt=str(path),
+                empty_after_save=back, resumed_on_host=bool(resumed.state.offload.parked),
+                step4=step4, host_bytes=sum(b.numel() for b in off.host.values()))
+
+
 def zero_cases(rank, world, weights, batch, run_dir, restore_dir):
     """ZeRO-3 (``full``), ZeRO-2 (``grad_op``) over fsdp=2 and data=2 (HSDP),
     3 steps each on the global batch; the checkpoint of the ZeRO-3 run
@@ -100,7 +128,7 @@ def zero_cases(rank, world, weights, batch, run_dir, restore_dir):
                    local_rows=int(trainer.put_batch(batch).input_ids.shape[0]),
                    sharded=sum(loc < whole for loc, whole in sharded), n_params=len(sharded),
                    is_main=trainer.is_main)
-        if name == "full":
+        if name != "data":
             path = trainer.ckpt.save(trainer.state, epoch=0)
             saved = state_numpy(trainer)      # a gather: every rank calls
             res["saved"] = saved if rank == 0 else None
@@ -108,6 +136,12 @@ def zero_cases(rank, world, weights, batch, run_dir, restore_dir):
             res["step4"] = {k: float(v) for k, v in
                             trainer.step_fn(trainer.state, trainer.put_batch(batch)).items()}
         out[name] = res
+    # the same fsdp=2 meshes with the state on the host between steps
+    for strategy in ("full", "grad_op"):
+        trainer = Trainer(CFG, run_config(f"{run_dir}/{strategy}_offload", mesh=MeshConfig(fsdp=2),
+                                          fsdp_strategy=strategy, host_offload_params=True),
+                          model=load_model(weights), device="cpu", metrics=NoMetrics())
+        out[f"{strategy}_offload"] = offload_run(trainer, weights, batch)
     # a run dir written on one device, restored at fsdp=2
     trainer = Trainer(CFG, run_config(restore_dir, mesh=MeshConfig(fsdp=2),
                                       training_mode="resume"),
@@ -243,6 +277,18 @@ def tp_cases(rank, world, weights, prompt, requests, max_len, new, int8, moe):
                        cache_k=tuple(st8.cache.k.shape),
                        qkv_rows=model8.lang_model.model.layers[0].self_attn["qkv_proj"].q
                        .shape[0])
+    # W4A8: the same route, int4 projections whole
+    model4 = AKIModel(cfg8, device="cpu")
+    model4.load_state_dict(torch.load(int8["weights"]), strict=True)
+    quant.quantize_params(model4, "w4a8", vision=True)
+    quant.FUSED_ACT_QUANT = "on"
+    toks, num = engine.generate(model4, ids8, images8, valid8, int8["new"], int8["max_len"],
+                                policy=F32, use_flash=True, kv_int8=True, device="cpu",
+                                tp_mesh=mesh)
+    quant.FUSED_ACT_QUANT = "auto"
+    qkv = model4.lang_model.model.layers[0].self_attn["qkv_proj"]
+    out["w4a8"] = dict(tokens=toks.numpy(), num=num.numpy(), qkv_bits=qkv.bits,
+                       qkv_rows=qkv.q.shape[0], qkv_in=qkv.in_features)
 
     # the MoE decoder: experts cut along their inner dim
     cfg_moe = dataclasses.replace(CFG, phi3=dataclasses.replace(
@@ -289,13 +335,15 @@ def cli_cases(rank, world, pretrain_cfg, sft_cfg, out):
                                (run_dir / "metrics.jsonl").read_text().splitlines()]
                               if rank == 0 else None)
         dist.barrier()
-    try:
-        sft.main(["--config", sft_cfg, "--device", "cpu",
-                  "training_config.host_offload_params=true",
-                  f"training_config.run_dir={out}/refused"])
-        res["offload"] = "ran"
-    except NotImplementedError as e:
-        res["offload"] = str(e)
+    # SFT with the state on the host between steps, at fsdp=2
+    run_dir = Path(out) / "sft_offload"
+    sft.main(["--config", sft_cfg, "--device", "cpu", "mesh.fsdp=2",
+              "training_config.host_offload_params=true", f"training_config.run_dir={run_dir}"])
+    dist.barrier()
+    res["offload"] = ([json.loads(line) for line in
+                       (run_dir / "metrics.jsonl").read_text().splitlines()]
+                      if rank == 0 else None)
+    dist.barrier()
     return res
 
 
@@ -475,6 +523,9 @@ def tp_train_cases(rank, world, weights, batch, run_dir, restore_dir,
         out["single_on_tp2"] = restored("r2", dict(fsdp=1, tensor=2), restore_dir)
         return out
     out["fsdp2_tp2"] = run("fsdp2_tp2", dict(fsdp=2, tensor=2), save=True)
+    out["fsdp2_tp2_offload"] = offload_run(
+        trainer("fsdp2_tp2_offload", dict(fsdp=2, tensor=2), host_offload_params=True),
+        weights, batch)
     out["dp2_tp2"] = run("dp2_tp2", dict(data=2, fsdp=1, tensor=2))
     out["tp2_seq2"] = run("tp2_seq2", dict(fsdp=1, tensor=2, seq=2))
     out["single_on_fsdp2_tp2"] = restored("r3", dict(fsdp=2, tensor=2), restore_dir)

@@ -2,15 +2,16 @@
 "op + quantize" plain versions (``aki_torch.ops.fused_quant``) against the
 JAX package, on the CPU.
 
-- weights: the same int8 values and scales as JAX's ``quantize_tensor`` /
-  ``quantize_params`` (w8, w8a8, fuse, vision, the fc1 128-padding), the
-  port's fused qkv / gate_up against JAX's split form;
-- ``mm`` on its three routes against JAX ``mm``;
+- weights: the same int8 / int4 values and scales as JAX's
+  ``quantize_tensor`` / ``quantize_params`` (w8, w8a8, w4, w4a8, fuse,
+  vision, the fc1 128-padding, the tower int8 in the w4 modes), the port's
+  fused qkv / gate_up against JAX's split form; the int4 packing;
+- ``mm`` on its three routes against JAX ``mm``, at 8 and 4 bits;
 - the plain fused-quant functions against JAX ``fused_quant.*`` run in
   interpret mode: int8 within one step, scales within 1e-6 relative (the
   same f32 math summed in another order);
-- ``generate`` with W8A8 weights and the int8 KV cache, greedy tokens
-  identical to the JAX engine's, at ``INT8_TINY``: ``aki_tiny`` with the
+- ``generate`` with W8A8 (and W4A8) weights and the int8 KV cache, greedy
+  tokens identical to the JAX engine's, at ``INT8_TINY``: ``aki_tiny`` with the
   widths at which every fused site runs (decoder and tower width 128,
   decoder MLP 256, tower MLP 192 padded to 256, 112-pixel images for
   64 patches per image), every site "on" in both packages, fp32 compute.
@@ -71,12 +72,13 @@ def tiny8():
 
 
 def _q(w):
-    """A JAX QuantTensor in the port's layout: q (out, in), s (out,) f32."""
-    return np.asarray(w.q).T, np.asarray(w.s, np.float32)[0]
+    """A JAX QuantTensor in the port's layout: q (out, in) int8 (int4
+    values widened), s (out,) f32."""
+    return np.asarray(w.q.astype(jnp.int8)).T, np.asarray(w.s, np.float32)[0]
 
 
 def _assert_quant_equal(port: quant.QuantTensor, want_q, want_s, bias=None):
-    np.testing.assert_array_equal(port.q.numpy(), want_q)
+    np.testing.assert_array_equal(port.int8().numpy(), want_q)
     np.testing.assert_allclose(port.s.float().numpy(), want_s, **SCALE_TOL)
     if bias is not None:
         np.testing.assert_array_equal(port.bias.numpy(), bias)
@@ -92,21 +94,55 @@ def test_quantize_tensor_matches_jax():
     assert got.a8 and got.q.dtype == torch.int8 and got.s.dtype == torch.bfloat16
     _assert_quant_equal(got, *_q(want))
     assert got.s[3].item() == 1.0
-    with pytest.raises(ValueError):
-        quant.quantize_tensor(torch.from_numpy(w.T.copy()), bits=4)
+    with pytest.raises(ValueError):                     # int4 packs pairs of columns
+        quant.quantize_tensor(torch.from_numpy(w[:95].T.copy()), bits=4)
+
+
+def test_quantize_tensor_int4_matches_jax():
+    """bits=4: the unpacked ints and the scales are JAX's ``jnp.int4`` q and
+    s; the packed weight is half the bytes of int8."""
+    rng = np.random.RandomState(1)
+    w = (rng.randn(96, 40) * 0.05).astype(np.float32)       # (in, out)
+    w[:, 3] = 0.0
+    w[5, 7] = 2.5
+    want = jax_quant.quantize_tensor(jnp.asarray(w), a8=True, bits=4)
+    assert want.q.dtype == jnp.int4
+    got = quant.quantize_tensor(torch.from_numpy(w.T.copy()), a8=True, bits=4)
+    assert got.bits == 4 and got.q.dtype == torch.int8 and got.q.shape == (40, 48)
+    assert got.in_features == 96 and "in=96" in repr(got)
+    _assert_quant_equal(got, *_q(want))
+    assert int(got.int8().abs().max()) == 7 and got.s[3].item() == 1.0
+
+
+def test_int4_pack_round_trip():
+    """Every pair of values in [-8, 7], odd and even columns, through
+    pack_int4 and unpack_int4; byte j holds column 2j low, 2j + 1 high."""
+    v = torch.arange(-8, 8, dtype=torch.int8)
+    q = torch.stack(torch.meshgrid(v, v, indexing="ij"), -1).reshape(1, -1)   # 256 pairs
+    p = quant.pack_int4(q)
+    assert p.shape == (1, 256) and p.dtype == torch.int8
+    assert torch.equal(quant.unpack_int4(p), q)
+    assert torch.equal(p & 0x0F, q[:, 0::2] & 0x0F) and torch.equal(p >> 4, q[:, 1::2])
+    edge = torch.tensor([[7, -7, -7, 7, 0, -1]], dtype=torch.int8)
+    assert torch.equal(quant.unpack_int4(quant.pack_int4(edge)), edge)
 
 
 @pytest.mark.parametrize("mode,fuse,vision", [("w8", False, True), ("w8a8", False, True),
-                                              ("w8a8", True, True), ("w8", True, False)])
+                                              ("w8a8", True, True), ("w8", True, False),
+                                              ("w4", False, True), ("w4a8", False, True),
+                                              ("w4a8", True, True)])
 def test_quantize_params_matches_jax(tiny8, mode, fuse, vision):
     model, params = tiny8
     want = jax_quantize_params(params, mode=mode, fuse=fuse, vision=vision)
     model = quant.quantize_params(copy.deepcopy(model), mode=mode, fuse=fuse, vision=vision)
-    a8 = mode == "w8a8"
+    a8, bits = mode.endswith("a8"), 4 if mode.startswith("w4") else 8
+    assert model.lang_model.lm_head.quant.bits == bits
     lay = want["phi3"]["layers"]
     for i, layer in enumerate(model.lang_model.model.layers):
         att, mlp = layer.self_attn, layer.mlp
         assert att["qkv_proj"].a8 == a8
+        assert {m.bits for m in (att["qkv_proj"], att["o_proj"], mlp["gate_up_proj"],
+                                 mlp["down_proj"])} == {bits}
         # the port's fused projections: JAX's wqkv, or its split wq|wk|wv
         parts = [lay["wqkv"]] if fuse else [lay[k] for k in ("wq", "wk", "wv")]
         qs = [_q(jax.tree.map(lambda a: a[i], p)) for p in parts]
@@ -135,6 +171,7 @@ def test_quantize_params_matches_jax(tiny8, mode, fuse, vision):
             for name, key in (("q_proj", "wq"), ("k_proj", "wk"), ("v_proj", "wv")):
                 _assert_quant_equal(att[name], *_q(pick(sly[key])),
                                     bias=np.asarray(sly["b" + key[1]][i]))
+        assert att["out_proj"].bits == mlp["fc1"].bits == 8       # the tower stays int8
         _assert_quant_equal(att["out_proj"], *_q(pick(sly["wo"])), bias=np.asarray(sly["bo"][i]))
         # fc1 192 -> 256 under a8 (zero rows, zero bias, zero fc2 columns)
         _assert_quant_equal(mlp["fc1"], *_q(pick(sly["fc1"]["w"])),
@@ -164,6 +201,26 @@ def test_mm_matches_jax(rows):
     np.testing.assert_allclose(quant.mm(pre, wt).numpy(), np.asarray(want_pre), rtol=1e-6)
     with pytest.raises(TypeError):
         quant.mm(pre, quant.quantize_tensor(torch.from_numpy(w.T.copy())))
+
+
+@pytest.mark.parametrize("rows", [80, 8])
+def test_mm_int4_matches_jax(rows):
+    """w4 (weight-only) and w4a8 (int8 x int8 on the unpacked weight, and
+    PreQuant) against JAX ``mm`` on its ``jnp.int4`` weight, within 1e-5."""
+    rng = np.random.RandomState(rows + 1)
+    x = rng.randn(2, rows // 2, 128).astype(np.float32)
+    w = (rng.randn(128, 48) * 0.05).astype(np.float32)
+    for a8 in (False, True):
+        wj = jax_quant.quantize_tensor(jnp.asarray(w), a8=a8, bits=4)
+        wt = quant.quantize_tensor(torch.from_numpy(w.T.copy()), a8=a8, bits=4)
+        want = np.asarray(jax_quant.mm(jnp.asarray(x), wj))
+        np.testing.assert_allclose(quant.mm(torch.from_numpy(x), wt).numpy(), want,
+                                   rtol=1e-5, atol=1e-5)
+    qj, sj = jax_quant.quantize_acts(jnp.asarray(x))
+    qt, st = quant.quantize_acts(torch.from_numpy(x))
+    want_pre = jax_quant.mm(jax_quant.PreQuant(q=qj, s=sj, dtype=jnp.float32), wj)
+    got_pre = quant.mm(quant.PreQuant(q=qt, s=st, dtype=torch.float32), wt)
+    np.testing.assert_allclose(got_pre.numpy(), np.asarray(want_pre), rtol=1e-5, atol=1e-5)
 
 
 def _bf16(rng, shape):
@@ -232,6 +289,22 @@ def int8_models(tiny8):
     s = INT8_TINY.siglip.image_size
     images = rng.randn(b, s, s, 3).astype(np.float32)
     return dict(qparams=qparams, model=model, ids=ids, valid=valid, images=images)
+
+
+@pytest.fixture(scope="module")
+def int4_models(tiny8, int8_models):
+    """The W4A8 weights of the same model, in both packages."""
+    model, params = tiny8
+    return {**int8_models,
+            "qparams": jax_quantize_params(params, mode="w4a8", fuse=False, vision=True),
+            "model": quant.quantize_params(copy.deepcopy(model), mode="w4a8", vision=True)}
+
+
+def test_int4_generate_tokens_identical_to_jax(int4_models, monkeypatch):
+    """W4A8 weights and the int8 KV cache: greedy tokens identical to the JAX
+    engine's, every fused site on (the int4 decoder unpacked for the int8
+    product in prefill, converted to f32 in decode)."""
+    test_int8_generate_tokens_identical_to_jax(int4_models, monkeypatch)
 
 
 def test_int8_generate_tokens_identical_to_jax(int8_models, monkeypatch):

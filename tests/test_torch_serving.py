@@ -6,16 +6,21 @@ held to the JAX engine in ``test_torch_engine.py`` and
 
 Greedy tokens must be identical: the server's padded, batched admission and
 its chunked decode over the slot cache compute each row as the one-shot
-path does.
+path does. The long-decode case also holds its first request to the JAX
+engine's ``generate``.
 """
 
 import sys
 import time
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from aki_tpu.infer import engine as jax_engine
+from aki_tpu.models import configs as jax_configs
+from aki_tpu.models.common import F32 as JAX_F32
 from aki_torch.convert import from_jax_params
 from aki_torch.infer import engine
 from aki_torch.infer.engine import prefill
@@ -28,6 +33,9 @@ from ._jax_tiny import tiny_params
 
 CFG = aki_tiny()
 MAX_LEN, BUCKET = 48, 12
+# long decodes: budgets of 128-256 new tokens after a prompt of the bucket
+LONG_BUDGETS, LONG_REQUESTS, LONG_SLOTS = (128, 256), 24, 8
+LONG_MAX_LEN = BUCKET + CFG.perceiver.num_latents - 1 + LONG_BUDGETS[1]
 
 
 @pytest.fixture(scope="module")
@@ -45,9 +53,9 @@ def make_prompt(rng, t=12):
     return list(ids), rng.randn(s, s, 3).astype(np.float32)
 
 
-def one_shot(model, ids, img, m, **kw):
+def one_shot(model, ids, img, m, max_len=MAX_LEN, **kw):
     toks, num = engine.generate(model, np.array([ids], np.int32), img[None],
-                                np.ones((1, len(ids)), np.int32), m, MAX_LEN, policy=F32,
+                                np.ones((1, len(ids)), np.int32), m, max_len, policy=F32,
                                 device="cpu", **kw)
     return toks[0, : int(num[0])].tolist()
 
@@ -215,3 +223,35 @@ def test_server_drains_under_uploader_contention(model):
     finally:
         sys.setswitchinterval(interval)
         eng.close()
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_server_long_decode_matches_one_shot(model, kv_int8):
+    """Long decodes: 8 slots, 24 requests with budgets of 128-256 drawn from a
+    seed, tail compaction on. Requests complete at different steps, so slots
+    free and refill mid-drain, completion-aligned admission interleaves with
+    decode, and the tail compacts. Every request's tokens are the port's
+    one-shot generate's; the first request's are the JAX engine's."""
+    rng = np.random.RandomState(140)
+    budgets = rng.randint(LONG_BUDGETS[0], LONG_BUDGETS[1] + 1, LONG_REQUESTS)
+    lengths = rng.randint(BUCKET - 3, BUCKET + 1, LONG_REQUESTS)
+    prompts = [make_prompt(np.random.RandomState(400 + i), int(t)) for i, t in enumerate(lengths)]
+    eng = ServingEngine(model, num_slots=LONG_SLOTS, max_len=LONG_MAX_LEN, prompt_bucket=BUCKET,
+                        policy=F32, decode_chunk=8, admit_batch=LONG_SLOTS, compact_tail=True,
+                        kv_int8=kv_int8, device="cpu")
+    try:
+        reqs = [eng.submit(ids, img, max_new_tokens=int(m))
+                for (ids, img), m in zip(prompts, budgets)]
+        eng.run_until_drained()
+        got = [r.result(timeout=5) for r in reqs]
+    finally:
+        eng.close()
+    assert [len(g) for g in got] == budgets.tolist()
+    for (ids, img), m, toks in zip(prompts, budgets, got):
+        assert toks == one_shot(model, ids, img, int(m), LONG_MAX_LEN, kv_int8=kv_int8)
+    (ids, img), m = prompts[0], int(budgets[0])
+    want, num = jax_engine.generate(
+        tiny_params(0), jax_configs.aki_tiny(), jnp.asarray([ids], jnp.int32),
+        jnp.asarray(img[None]), jnp.ones((1, len(ids)), jnp.int32), max_new_tokens=m,
+        max_len=LONG_MAX_LEN, policy=JAX_F32, use_flash=False, kv_int8=kv_int8)
+    assert got[0] == np.asarray(want)[0, : int(num[0])].tolist()

@@ -77,10 +77,17 @@ def int8_reference(tmp) -> dict:
                                         jnp.asarray(valid), max_new_tokens=6, max_len=64,
                                         policy=JAX_F32, use_flash=True, kv_int8=True,
                                         tp_mesh=mesh)
+        q4 = jax_quantize_params(convert_aki_checkpoint(model.state_dict(), JAX_INT8_TINY),
+                                 mode="w4a8", fuse=False, vision=True)
+        toks4, num4 = jax_engine.generate(shard_params(q4, mesh), JAX_INT8_TINY,
+                                          jnp.asarray(ids), jnp.asarray(images),
+                                          jnp.asarray(valid), max_new_tokens=6, max_len=64,
+                                          policy=JAX_F32, use_flash=True, kv_int8=True,
+                                          tp_mesh=mesh)
     weights = tmp / "int8.pt"
     torch.save(model.state_dict(), weights)
-    return dict(tokens=np.asarray(toks), num=np.asarray(num),
-                ranks=dict(weights=str(weights), cfg=INT8_TINY, prompt=(ids, images, valid),
+    return dict(tokens=np.asarray(toks), num=np.asarray(num), tokens4=np.asarray(toks4),
+                num4=np.asarray(num4), ranks=dict(weights=str(weights), cfg=INT8_TINY, prompt=(ids, images, valid),
                            new=6, max_len=64))
 
 
@@ -242,6 +249,20 @@ def test_tp_w8a8_generate_matches_jax_sharded(run):
         p = INT8_TINY.phi3
         assert got["qkv_rows"] == (p.num_heads + 2 * p.num_kv_heads) * p.head_dim
         assert got["cache_k"][-1] == p.num_kv_heads // 2 * p.head_dim
+
+
+def test_tp_w4a8_generate_matches_jax_sharded(run):
+    """W4A8 takes W8A8's route under tensor=2: the int4 projections stay
+    whole (every row, packed along ``in``), and the greedy tokens are those
+    of JAX's sharded engine on its ``jnp.int4`` weights."""
+    want = run["ref"]["int8"]
+    p = INT8_TINY.phi3
+    for r in run["ranks"]:
+        got = r["w4a8"]
+        np.testing.assert_array_equal(got["tokens"], want["tokens4"])
+        np.testing.assert_array_equal(got["num"], want["num4"])
+        assert got["qkv_bits"] == 4 and got["qkv_in"] == p.hidden_size
+        assert got["qkv_rows"] == (p.num_heads + 2 * p.num_kv_heads) * p.head_dim
 
 
 def test_tp_w8a8_attends_with_the_flash_forward_on_local_heads(run):

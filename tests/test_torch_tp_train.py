@@ -7,7 +7,8 @@ unsharded steps).
 
 Two groups, as the meshes need two world sizes
 (``tests/_torch_dist_cases.py:tp_train_cases``): 2 ranks run tensor=2
-(steps, checkpoints both ways with one device and fsdp=2); 4 ranks run fsdp=2 x tensor=2, data=2 x tensor=2,
+(steps, checkpoints both ways with one device and fsdp=2); 4 ranks run fsdp=2 x tensor=2
+(also with ``host_offload_params``), data=2 x tensor=2,
 tensor=2 x seq=2 and the MoE model at expert=2 x tensor=2 (held to the
 port's single-device Trainer, which ``tests/test_torch_moe.py`` holds to
 JAX). At ``tensor=2`` aki_tiny's tower (2 heads) and Perceiver (2 heads)
@@ -42,7 +43,7 @@ from aki_torch.train.runner import Trainer
 from ._jax_tiny import tiny_params
 from ._torch_dist import run_group
 from ._torch_dist_cases import NoMetrics, run_config, state_numpy, train
-from .test_torch_zero import make_batch, port_model, to_jax
+from .test_torch_zero import assert_offload_run, make_batch, port_model, to_jax
 
 CFG_J, CFG = jax_configs.aki_tiny(), aki_tiny()
 GRAD_TOL = 1e-5
@@ -218,6 +219,15 @@ def test_tp_checkpoint_moves_between_meshes(run, case, want):
         assert set(got[kind]) == set(ref[kind])
         for k in ref[kind]:
             assert np.array_equal(got[kind][k], ref[kind][k]), k
+
+
+def test_host_offload_at_fsdp2_tp2(run):
+    """host_offload_params at fsdp=2 x tensor=2 (each rank's state: its
+    FSDP2 shards of its tensor blocks): 3 steps bitwise those of the same
+    mesh without it and within 1e-4 of JAX; every storage empty between
+    steps; the offloaded checkpoint bitwise the plain one; a resume from it
+    takes the plain run's 4th step bitwise."""
+    assert_offload_run(run["four"], "fsdp2_tp2", "fsdp2_tp2_offload", run["ref"]["metrics"])
 
 
 def test_moe_trains_at_expert2_tensor2(run):

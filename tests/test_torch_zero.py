@@ -1,5 +1,6 @@
 """ZeRO-3, ZeRO-2 and data parallelism (FSDP2 on a 2-rank gloo group),
-host offload of the state, and checkpoints across meshes, against the JAX
+host offload of the state (on one device and at fsdp=2), and checkpoints
+across meshes, against the JAX
 package's ``make_train_step`` on the global batch at aki_tiny in fp32.
 
 One group runs every sharded case (``tests/_torch_dist_cases.py:zero_cases``);
@@ -147,30 +148,95 @@ def test_bad_strategy_raises():
         Trainer(CFG, run_config("unused", fsdp_strategy="hybrid"), device="cpu")
 
 
+def assert_same_checkpoint(a, b) -> None:
+    """Two checkpoint files hold the same step, weights and optimizer
+    state, bitwise."""
+    def flat(x, key=()):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from flat(v, key + (k,))
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                yield from flat(v, key + (i,))
+        else:
+            yield key, x
+
+    x = dict(flat(torch.load(a, weights_only=False)))
+    y = dict(flat(torch.load(b, weights_only=False)))
+    assert set(x) == set(y)
+    for k, v in x.items():
+        if isinstance(v, torch.Tensor):
+            assert v.dtype == y[k].dtype and torch.equal(v, y[k]), k
+        else:
+            assert v == y[k], k
+
+
 def test_host_offload_round_trip(run, tmp_path):
-    """host_offload_params: between steps every parameter and moment is a
-    separate host tensor (pinned on a card), and the loss and grad_norm
-    are bitwise those of the plain run."""
+    """host_offload_params on one device: between steps every storage of
+    the state (parameters, buffers, AdamW moments and counts) is empty and
+    its bytes sit in a host buffer; the loss and grad_norm are bitwise
+    those of the plain run; a checkpoint saved while the state is on the
+    host is the plain run's, bitwise, and the state goes back after it; a
+    resume from it takes the plain run's 4th step bitwise."""
     from aki_torch.train.runner import Trainer
 
     plain = Trainer(CFG, run_config(str(tmp_path / "plain")), model=port_model(run["params"]),
                     device="cpu", metrics=NoMetrics())
     off = Trainer(CFG, run_config(str(tmp_path / "off"), host_offload_params=True),
                   model=port_model(run["params"]), device="cpu", metrics=NoMetrics())
-    before = [p.data for p in off.model.parameters()]   # kept alive: no address reuse
+    host = off.state.offload
     for _ in range(3):
         want = plain.step_fn(plain.state, plain.put_batch(run["batch"]))
         got = off.step_fn(off.state, off.put_batch(run["batch"]))
         assert float(got["loss"]) == float(want["loss"])
         assert float(got["grad_norm"]) == float(want["grad_norm"])
+        storages = host.storages()
+        assert storages and all(st.nbytes() == 0 for st in storages)
+        assert {st._cdata for st, _ in host.parked} == set(host.host)
     assert len(off.offload_ms) == 3
-    after = [p.data.data_ptr() for p in off.model.parameters()]
-    assert not {t.data_ptr() for t in before} & set(after)    # every tensor was moved
     moments = [v for st in off.state.optimizer.opt.state.values() for v in st.values()
                if isinstance(v, torch.Tensor) and v.dim()]
-    assert moments and all(v.device.type == "cpu" for v in moments)
-    for a, b in zip(plain.model.parameters(), off.model.parameters()):
-        assert torch.equal(a, b)
+    assert moments and all(v.untyped_storage().nbytes() == 0 for v in moments)
+    with host.resident():
+        for a, b in zip(plain.model.parameters(), off.model.parameters()):
+            assert torch.equal(a, b)
+    assert all(st.nbytes() == 0 for st in host.storages())
+    assert_same_checkpoint(plain.ckpt.save(plain.state, epoch=0),
+                           off.ckpt.save(off.state, epoch=0))
+    assert all(st.nbytes() == 0 for st in host.storages())
+    want = plain.step_fn(plain.state, plain.put_batch(run["batch"]))
+    resumed = Trainer(CFG, run_config(str(tmp_path / "off"), host_offload_params=True,
+                                      training_mode="resume"),
+                      model=port_model(run["params"]), device="cpu", metrics=NoMetrics())
+    assert resumed.state.step == 3 and bool(resumed.state.offload.parked)
+    got = resumed.step_fn(resumed.state, resumed.put_batch(run["batch"]))
+    assert float(got["loss"]) == float(want["loss"])
+    assert float(got["grad_norm"]) == float(want["grad_norm"])
+
+
+@pytest.mark.parametrize("case", ["full", "grad_op"])
+def test_host_offload_under_fsdp2(run, case):
+    """host_offload_params at fsdp=2 (ZeRO-3 and ZeRO-2): 3 steps' loss and
+    grad_norm bitwise those of the same mesh without it and within 1e-4 of
+    JAX; between steps every storage of each rank's state is empty, its
+    bytes in a host buffer; a checkpoint saved while offloaded is the
+    plain run's, bitwise; a resume from it takes the plain run's 4th step
+    bitwise."""
+    assert_offload_run(run["ranks"], case, f"{case}_offload", run["metrics"])
+
+
+def assert_offload_run(ranks, plain: str, offloaded: str, jax_metrics) -> None:
+    for r in ranks:
+        got, want = r[offloaded], r[plain]
+        for g, w, j in zip(got["metrics"], want["metrics"], jax_metrics):
+            assert g["loss"] == w["loss"] and g["grad_norm"] == w["grad_norm"]
+            np.testing.assert_allclose(g["loss"], j["loss"], rtol=LOSS_RTOL)
+            np.testing.assert_allclose(g["grad_norm"], j["grad_norm"], rtol=LOSS_RTOL)
+        assert got["empty_between_steps"] == [True] * 3
+        assert got["empty_after_save"] and got["resumed_on_host"] and got["host_bytes"] > 0
+        assert got["step4"]["loss"] == want["step4"]["loss"]
+        assert got["step4"]["grad_norm"] == want["step4"]["grad_norm"]
+    assert_same_checkpoint(ranks[0][plain]["ckpt"], ranks[0][offloaded]["ckpt"])
 
 
 def test_checkpoint_fsdp2_restores_on_one_device(run):
