@@ -21,6 +21,13 @@ A fixed pool of KV-cache *slots* serves many requests at once:
   decodes at a narrower ``live_width``, which the int8-KV decode kernel
   reads as a prefix of the cache's rows.
 
+Each request carries its host timeline (``t_submit``, ``t_on_card``,
+``t_admitted``, ``t_first``, ``t_done``), and the answered ones enter the
+process's trace ring (:mod:`aki_torch.trace`) as request records beside
+the engine's spans: ``serve.tick`` (:meth:`ServingEngine.step`),
+``serve.admit``, ``serve.prefill`` (its ``(b, t)``), ``serve.decode_chunk``
+(its ``(n, live)``) and ``serve.read_chunk``.
+
 The device work is three calls — the admission prefill, the decode chunk
 and the compaction's row moves — plus the split-path insert kept as the
 admission's oracle; the host loop is bookkeeping only. Every argument of
@@ -35,6 +42,7 @@ admits the same requests at the same step.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
@@ -44,6 +52,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import trace
 from ..models.aki import AKIModel
 from ..models.common import BF16, Policy, resolve_device
 from ..models.phi3 import KVCache, KVCacheQ, slot_rows
@@ -52,6 +61,7 @@ from .sampling import SamplingConfig, sample
 
 _log = logging.getLogger(__name__)
 LOG_ENTRIES = 1 << 16
+_request_ids = itertools.count()
 
 
 @dataclasses.dataclass
@@ -68,9 +78,30 @@ class Request:
     # while this request's last chunk is still being read
     _tokens: list = dataclasses.field(default_factory=list)
     _dispatched: int = 0           # decode steps dispatched so far
+    id: int = dataclasses.field(default_factory=lambda: next(_request_ids))
+    # the host timeline (time.perf_counter_ns): submitted; the pixels on the
+    # card (or, after a failed upload, queued with host rows); admitted (the
+    # admission taken, before its prefill is issued); the first token read on
+    # the host; answered
+    t_submit: int | None = None
+    t_on_card: int | None = None
+    t_admitted: int | None = None
+    t_first: int | None = None
+    t_done: int | None = None
+    profiled: bool = False         # a stamp was taken while tracing was on
 
     def result(self, timeout=None) -> list[int]:
         return self._result.get(timeout=timeout)
+
+    def stamp(self, name: str) -> None:
+        """Set the timeline's field ``name`` to now."""
+        setattr(self, name, time.perf_counter_ns())
+        self.profiled = self.profiled or trace.on()
+
+    def record(self) -> trace.RequestRecord:
+        return trace.RequestRecord(self.id, self.t_submit, self.t_on_card, self.t_admitted,
+                                   self.t_first, self.t_done, len(self.input_ids),
+                                   len(self._tokens), self.profiled)
 
 
 class ServingEngine:
@@ -155,8 +186,6 @@ class ServingEngine:
         # (kind, key, host time) of each device call: "decode" keys
         # (chunk_len, live_width), "prefill" keys (batch, bucket)
         self.dispatch_log: deque = deque(maxlen=LOG_ENTRIES)
-        # host time of each request's completion
-        self.completion_log: deque = deque(maxlen=LOG_ENTRIES)
         self._move_chunk = min(8, num_slots)
 
     # -- device state -----------------------------------------------------------
@@ -238,9 +267,10 @@ class ServingEngine:
         """Admission: the prefill writes row r's K/V into slot ``slots[r]`` of
         the slot cache and its bookkeeping into the same row of the state (a
         slot of ``num_slots`` drops a padded row)."""
-        self.state = prefill(self.model, ids, self._images(imgs), valid, self.max_len,
-                             policy=self.policy, attn_mode=self.attn_mode,
-                             device=self.device, slot_state=self.state, slots=slots)
+        with trace.span("serve.prefill", b=ids.shape[0], t=ids.shape[1]):
+            self.state = prefill(self.model, ids, self._images(imgs), valid, self.max_len,
+                                 policy=self.policy, attn_mode=self.attn_mode,
+                                 device=self.device, slot_state=self.state, slots=slots)
 
     @torch.inference_mode()
     def _insert(self, new: GenState, slots) -> None:
@@ -262,23 +292,25 @@ class ServingEngine:
         bookkeeping (kv_valid, lengths, last logits) is frozen — the cache
         may take a garbage row behind the frozen kv_valid, which admission
         overwrites."""
-        act = torch.tensor(active, device=self.device)
-        pad = self.cfg.pad_token_id
-        st, toks = self.state, []
-        for _ in range(n):
-            tok = torch.where(act, sample(st.last_logits, self.sampling, self._generator), pad)
-            new = decode_step(self.model, st, tok, policy=self.policy, device=self.device,
-                              live_width=live)
+        with trace.span("serve.decode_chunk", n=n, live=live or self.num_slots):
+            act = torch.tensor(active, device=self.device)
+            pad = self.cfg.pad_token_id
+            st, toks = self.state, []
+            for _ in range(n):
+                tok = torch.where(act, sample(st.last_logits, self.sampling, self._generator),
+                                  pad)
+                new = decode_step(self.model, st, tok, policy=self.policy, device=self.device,
+                                  live_width=live)
 
-            def keep(a, b):
-                return torch.where(act.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+                def keep(a, b):
+                    return torch.where(act.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
-            st = GenState(cache=new.cache, kv_valid=keep(new.kv_valid, st.kv_valid),
-                          lengths=keep(new.lengths, st.lengths),
-                          last_logits=keep(new.last_logits, st.last_logits))
-            toks.append(tok)
-        self.state = st
-        return torch.stack(toks)
+                st = GenState(cache=new.cache, kv_valid=keep(new.kv_valid, st.kv_valid),
+                              lengths=keep(new.lengths, st.lengths),
+                              last_logits=keep(new.last_logits, st.last_logits))
+                toks.append(tok)
+            self.state = st
+            return torch.stack(toks)
 
     def _fetch_async(self, toks: torch.Tensor):
         """Start the copy of a chunk's tokens to the host: (host tensor,
@@ -350,12 +382,14 @@ class ServingEngine:
                 chunk = self._put(rows)            # one transfer per group
                 for i, r in enumerate(batch):
                     r._image_dev = chunk[i]
+                    r.stamp("t_on_card")
                     self.queue.put(r)
             except Exception:
                 # fail open: the requests stay servable through the host-row
                 # path of _admit_many (a dead uploader must not hang a drain)
                 _log.exception("image upload failed; admitting from host rows")
                 for r in batch:
+                    r.stamp("t_on_card")
                     self.queue.put(r)
             finally:
                 with self._upload_cv:
@@ -377,15 +411,18 @@ class ServingEngine:
                eos_id: int | None = None) -> Request:
         req = Request(input_ids=list(input_ids), image=image,
                       max_new_tokens=max_new_tokens, eos_id=eos_id)
+        req.stamp("t_submit")
         if isinstance(image, torch.Tensor) and image.device == self.device:
             # pixels already on the card: admissible at once
             req._image_dev = image
+            req.stamp("t_on_card")
             self.queue.put(req)
             return req
         if self.tensor_parallel:
             # no uploader threads: what is admissible then depends on the
             # order of submit alone, the same on every rank
             req._image_dev = self._put(np.asarray(image, self._host_dtype)[None])[0]
+            req.stamp("t_on_card")
             self.queue.put(req)
             return req
         # host pixels ride the uploader threads; the request becomes
@@ -415,34 +452,37 @@ class ServingEngine:
         else:
             need = max(min(len(r.input_ids), self.prompt_bucket) for r in reqs)
             t = next(bk for bk in self.prompt_buckets if bk >= need)
-        ids = np.full((b, t), self.cfg.pad_token_id, np.int32)
-        valid = np.zeros((b, t), np.int32)
-        slot_idx = np.full((b,), self.num_slots, np.int64)   # out of range: dropped
-        img_rows = []
-        for r, (slot, req) in enumerate(zip(slots, reqs)):
-            n = min(len(req.input_ids), t)
-            ids[r, :n] = req.input_ids[:n]
-            valid[r, :n] = 1
-            img_rows.append(req._image_dev if req._image_dev is not None
-                            else np.asarray(req.image, self._host_dtype))
-            slot_idx[r] = slot
-        # dummy rows still need one valid token
-        for r in range(len(reqs), b):
-            valid[r, 0] = 1
-            img_rows.append(self._zero_img)
-        if any(isinstance(im, np.ndarray) for im in img_rows):
-            # host rows (a failed upload): one batched transfer
-            host = np.stack([im if isinstance(im, np.ndarray) else im.cpu().numpy()
-                             for im in img_rows])
-            imgs = self._put(host.astype(self._host_dtype))
-        else:
-            imgs = torch.stack(img_rows)
-        self.dispatch_log.append(("prefill", (b, t), time.perf_counter()))
-        self._prefill_batch(ids, imgs, valid, slot_idx)
-        for slot, req in zip(slots, reqs):
-            self.slot_req[slot] = req
-            req._tokens = []
-            req._dispatched = 0
+        with trace.span("serve.admit"):
+            for req in reqs:
+                req.stamp("t_admitted")
+            ids = np.full((b, t), self.cfg.pad_token_id, np.int32)
+            valid = np.zeros((b, t), np.int32)
+            slot_idx = np.full((b,), self.num_slots, np.int64)   # out of range: dropped
+            img_rows = []
+            for r, (slot, req) in enumerate(zip(slots, reqs)):
+                n = min(len(req.input_ids), t)
+                ids[r, :n] = req.input_ids[:n]
+                valid[r, :n] = 1
+                img_rows.append(req._image_dev if req._image_dev is not None
+                                else np.asarray(req.image, self._host_dtype))
+                slot_idx[r] = slot
+            # dummy rows still need one valid token
+            for r in range(len(reqs), b):
+                valid[r, 0] = 1
+                img_rows.append(self._zero_img)
+            if any(isinstance(im, np.ndarray) for im in img_rows):
+                # host rows (a failed upload): one batched transfer
+                host = np.stack([im if isinstance(im, np.ndarray) else im.cpu().numpy()
+                                 for im in img_rows])
+                imgs = self._put(host.astype(self._host_dtype))
+            else:
+                imgs = torch.stack(img_rows)
+            self.dispatch_log.append(("prefill", (b, t), time.perf_counter()))
+            self._prefill_batch(ids, imgs, valid, slot_idx)
+            for slot, req in zip(slots, reqs):
+                self.slot_req[slot] = req
+                req._tokens = []
+                req._dispatched = 0
 
     def _admit_free(self) -> None:
         """Fill free slots from the queue (subject to admit_policy).
@@ -504,12 +544,15 @@ class ServingEngine:
             for k in range(toks.shape[0]):
                 if len(req._tokens) >= req.max_new_tokens:
                     break
+                if req.t_first is None:
+                    req.stamp("t_first")
                 t = int(toks[k, slot])
                 done = req.eos_id is not None and t == req.eos_id
                 if not done:
                     req._tokens.append(t)
                 if done or len(req._tokens) >= req.max_new_tokens:
-                    self.completion_log.append(time.perf_counter())
+                    req.stamp("t_done")
+                    trace.record(req.record())
                     req._result.put(req._tokens)
                     # free by identity: compaction may have moved the request
                     for i, live in enumerate(self.slot_req):
@@ -519,11 +562,14 @@ class ServingEngine:
                     break
 
     def _flush_pending(self) -> None:
-        while self._pending:
-            host, ev, snapshot = self._pending.pop(0)
-            if ev is not None:
-                ev.synchronize()       # the one host sync of a chunk
-            self._process_chunk(host.numpy(), snapshot)
+        if not self._pending:
+            return
+        with trace.span("serve.read_chunk"):
+            while self._pending:
+                host, ev, snapshot = self._pending.pop(0)
+                if ev is not None:
+                    ev.synchronize()       # the one host sync of a chunk
+                self._process_chunk(host.numpy(), snapshot)
 
     def step(self) -> int:
         """One scheduler tick: admit into free slots, compact the drain tail,
@@ -531,6 +577,10 @@ class ServingEngine:
         budget is now fully dispatched and that has no eos frees its slot at
         once), then read the previous chunk's tokens. Returns the number of
         active slots at dispatch."""
+        with trace.span("serve.tick"):
+            return self._tick()
+
+    def _tick(self) -> int:
         if not any(r is not None for r in self.slot_req):
             self._flush_pending()   # idle: account stragglers so their slots free
         self._admit_free()

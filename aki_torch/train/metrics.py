@@ -1,13 +1,12 @@
-"""Training metrics: JSONL, TensorBoard when it imports, step timers and a
-profiler hook (counterpart of ``aki_tpu/train/metrics.py``)."""
+"""Training metrics: JSONL, TensorBoard when it imports, and step timers
+(counterpart of ``aki_tpu/train/metrics.py``; its profiler hook is the
+trace spans of :mod:`aki_torch.trace` here)."""
 
 from __future__ import annotations
 
 import json
 import time
 from pathlib import Path
-
-import torch
 
 
 class AverageMeter:
@@ -58,30 +57,3 @@ class MetricsLogger:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
-
-
-class ProfilerHook:
-    """Trace steps [start, start + num) with ``torch.profiler`` (host and,
-    where there is one, the CUDA device) into ``run_dir/profile`` as a Chrome
-    trace. Call :meth:`step` once per step with the step index."""
-
-    def __init__(self, run_dir: str, start_step: int = -1, num_steps: int = 3):
-        self.dir = Path(run_dir) / "profile"
-        self.start = start_step
-        self.stop = start_step + num_steps
-        self._prof = None
-
-    def step(self, step: int):
-        if step == self.start and self._prof is None:
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            self._prof = profile(activities=acts)
-            self._prof.__enter__()
-        elif step == self.stop and self._prof is not None:
-            self._prof.__exit__(None, None, None)
-            self.dir.mkdir(parents=True, exist_ok=True)
-            self._prof.export_chrome_trace(str(self.dir / f"trace_{self.start}.json"))
-            self._prof = None

@@ -42,6 +42,7 @@ from collections.abc import Iterable
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..models.aki import AKIModel
 from ..models.common import BF16, F32, resolve_device
 from ..models.configs import AKIConfig
@@ -242,8 +243,12 @@ class Trainer:
 
     def put_batch(self, batch):
         """Loader batch(es) -> a :class:`Batch` of tensors on the device."""
+        with trace.span("train.put_batch"):
+            return self._put(batch)
+
+    def _put(self, batch):
         if isinstance(batch, tuple):
-            return tuple(self.put_batch(b) for b in batch)
+            return tuple(self._put(b) for b in batch)
         batch = batch_rows(batch, self.mesh, stacked=self.cfg.grad_accum > 1)
         to = lambda x: torch.as_tensor(x).to(self.device, non_blocking=True)  # noqa: E731
         lw = getattr(batch, "loss_weight", None)
@@ -281,23 +286,31 @@ class Trainer:
                         yield self._stack_micro(buf)
                         buf = []
             batch_iter = grouped()
-        step_time, data_time = AverageMeter(), AverageMeter()
-        t_end = time.perf_counter()
+        data_time = AverageMeter()
+        # step_time: wall time a step since the last log boundary, each
+        # boundary closed by the loss's host sync; checkpoint writes left out
+        t_end = t_log = time.perf_counter()
+        since = 0
         for loader_batch in batch_iter:
             if self.state.step >= cfg.total_steps:
                 break
             data_time.update(time.perf_counter() - t_end)
             m = self.step_fn(self.state, self.put_batch(loader_batch))
+            since += 1
             step = self.state.step
             if step % cfg.log_every == 0:
                 # host sync only at log boundaries
-                self.metrics.log(step, training_loss=float(m["loss"]),
+                loss = float(m["loss"])
+                now = time.perf_counter()
+                self.metrics.log(step, training_loss=loss,
                                  learning_rate=self._schedule(step),
                                  grad_norm=float(m["grad_norm"]),
-                                 step_time=step_time.avg, data_time=data_time.avg)
+                                 step_time=(now - t_log) / since, data_time=data_time.avg)
+                t_log, since = now, 0
             if step % cfg.checkpoint_steps == 0:
+                t0 = time.perf_counter()
                 self.ckpt.save(self.state, epoch=epoch, step=step)
-            step_time.update(time.perf_counter() - t_end)
+                t_log += time.perf_counter() - t0
             t_end = time.perf_counter()
         return self.state.step
 

@@ -17,7 +17,10 @@
   and by ``loss_scale`` (the gradients keep that scale, as in the JAX step;
   the logged loss does not); a MoE decoder's Switch aux loss is added after
   the weight, times ``moe_aux_weight``;
-- the metrics are ``loss`` and ``grad_norm``, the norm taken before the clip.
+- the metrics are ``loss`` and ``grad_norm``, the norm taken before the clip;
+- spans (:mod:`aki_torch.trace`): ``train.step`` around a step, holding
+  ``train.forward`` and ``train.backward`` for each dataset and
+  micro-batch and ``train.optimizer`` around the clip and AdamW.
 
 The port updates the model and the optimizer in place instead of returning
 a new state.
@@ -37,6 +40,7 @@ from collections.abc import Callable
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..models.aki import AKIModel, aki_forward
 from ..models.common import BF16, Policy
 from ..models.configs import AKIConfig
@@ -138,21 +142,25 @@ def make_train_step(
         micros = [batch] if grad_accum == 1 else [batch.micro(i) for i in range(grad_accum)]
         total = None
         for micro in micros:
-            loss = loss_fn(model, micro) * loss_scale / grad_accum
-            (loss * grad_scale if grad_scale != 1 else loss).backward()
+            with trace.span("train.forward"):
+                loss = loss_fn(model, micro) * loss_scale / grad_accum
+            with trace.span("train.backward"):
+                (loss * grad_scale if grad_scale != 1 else loss).backward()
             total = loss.detach() if total is None else total + loss.detach()
         return total
 
     def train_step(state: TrainState, batch) -> dict:
-        state.optimizer.zero_grad()
-        batches = batch if isinstance(batch, tuple) else (batch,)
-        loss = sum(accumulate(state.model, b) for b in batches) / len(batches)
-        if parallel is not None:
-            sync_grads(state.optimizer.params, parallel.seq_group)
-            dist.all_reduce(loss, group=parallel.loss_group)
-        grad_norm = state.optimizer.step()
-        state.step += 1
-        return {"loss": loss / loss_scale, "grad_norm": grad_norm}
+        with trace.span("train.step"):
+            state.optimizer.zero_grad()
+            batches = batch if isinstance(batch, tuple) else (batch,)
+            loss = sum(accumulate(state.model, b) for b in batches) / len(batches)
+            if parallel is not None:
+                sync_grads(state.optimizer.params, parallel.seq_group)
+                dist.all_reduce(loss, group=parallel.loss_group)
+            with trace.span("train.optimizer"):
+                grad_norm = state.optimizer.step()
+            state.step += 1
+            return {"loss": loss / loss_scale, "grad_norm": grad_norm}
 
     return train_step
 

@@ -21,6 +21,7 @@ import torch
 from aki_tpu.infer import engine as jax_engine
 from aki_tpu.models import configs as jax_configs
 from aki_tpu.models.common import F32 as JAX_F32
+from aki_torch import trace
 from aki_torch.convert import from_jax_params
 from aki_torch.infer import engine
 from aki_torch.infer.engine import prefill
@@ -167,12 +168,14 @@ def test_server_batched_admission_drains(model):
     """admit_policy "batched" with small upload chunks: every request
     completes, and idle ticks (waiting on uploads) do not count."""
     prompts = [make_prompt(np.random.RandomState(400 + i)) for i in range(6)]
+    t0 = time.perf_counter_ns()
     eng, got = serve(model, [(ids, img, 3) for ids, img in prompts], num_slots=4,
                      admit_batch=4, admit_policy="batched", upload_chunk=2)
     assert [len(t) for t in got] == [3] * 6
-    assert len(eng.completion_log) == 6
+    answered = [r for r in trace.TRACER.requests() if r.t_submit >= t0]
+    assert len(answered) == 6 and all(r.served_tokens == 3 for r in answered)
     assert {k for k, _, _ in eng.dispatch_log} == {"prefill", "decode"}
-    assert eng.dispatch_log.maxlen == eng.completion_log.maxlen == 65536
+    assert eng.dispatch_log.maxlen == 65536
 
 
 def test_server_rejects_tp_mesh(model):

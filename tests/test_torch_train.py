@@ -12,6 +12,7 @@ summed datasets) and bit equality where the computation is the same.
 
 import dataclasses
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,7 @@ from aki_torch.models.aki import AKIModel
 from aki_torch.models.common import BF16, F32
 from aki_torch.models.configs import aki_tiny
 from aki_torch.train import optim, schedules
-from aki_torch.train.metrics import MetricsLogger, ProfilerHook
+from aki_torch.train.metrics import MetricsLogger
 from aki_torch.train.runner import RunnerConfig, Trainer
 from aki_torch.train.step import Batch, TrainState, make_loss_fn, make_train_step
 
@@ -277,22 +278,22 @@ def test_run_epoch_groups_accumulation_and_logs(params, tmp_path):
                                         warmup_steps=0, precision="fp32"),
                       model=port_model(params), device="cpu",
                       metrics=MetricsLogger(str(tmp_path), use_tensorboard=False))
+    t0 = time.perf_counter()
     assert trainer.run_epoch(iter(loader), epoch=0) == 2   # the 5th batch is dropped
+    wall = time.perf_counter() - t0
     recs = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in recs] == [1, 2]
     assert all(np.isfinite(r["training_loss"]) and r["grad_norm"] > 0 for r in recs)
+    # step_time: each log boundary's wall time since the last, closed on the
+    # loss's sync; together the steps' times are the epoch's, less the log
+    # and checkpoint writes
+    assert all(0 < r["step_time"] and r["data_time"] >= 0 for r in recs)
+    assert sum(r["step_time"] for r in recs) <= wall
+    assert sum(r["step_time"] for r in recs) > 0.5 * wall
     mixed = [dataclasses.replace(loader[0], loss_weight=1.0),
              dataclasses.replace(loader[1], loss_weight=2.0)]
     with pytest.raises(AssertionError, match="one loss_weight"):
         Trainer._stack_micro(mixed)
-
-
-def test_profiler_hook_writes_a_trace(tmp_path):
-    hook = ProfilerHook(str(tmp_path), start_step=1, num_steps=2)
-    for step in range(4):
-        hook.step(step)
-        torch.ones(8) @ torch.ones(8)
-    assert [p.name for p in (tmp_path / "profile").iterdir()] == ["trace_1.json"]
 
 
 def test_trainer_raises_without_a_card():
