@@ -25,7 +25,9 @@ and :func:`~aki_torch.parallel.tensor.row_parallel` (without a tensor group
 and quantized (:mod:`aki_torch.models.quant`) weights, cut or whole; under
 quantized weights a prefill with ``use_flash`` attends through
 :func:`~aki_torch.ops.attention.decoder_attention_bf16p`, as the JAX
-package's serving prefill does.
+package's serving prefill does: on the card (bf16 tensors) the hand-written
+kernel of :mod:`~aki_torch.ops.flash_bf16p`, on the CPU (and on f32
+tensors) plain torch with the same numerics.
 """
 
 from __future__ import annotations

@@ -13,8 +13,11 @@ Under weights quantized by :func:`~aki_torch.models.quant.quantize_params`
 (``aki_tpu/models/siglip.py:97-143``): fused layernorm + quantize at both
 norms, int8 products with float biases, fused gelu(fc1 + b) + quantize
 ahead of fc2 over the padded MLP width, and, on the card, attention with
-bf16 probabilities (:func:`~aki_torch.ops.attention.encoder_attention_bf16p`);
-on the CPU the tower keeps the dense attention, as JAX does off the TPU.
+bf16 probabilities (:func:`~aki_torch.ops.attention.encoder_attention_bf16p`,
+which launches the hand-written kernel of
+:mod:`~aki_torch.ops.flash_bf16p` on bf16 tensors and runs plain torch on
+f32 ones); on the CPU the tower keeps the dense attention, as JAX does off
+the TPU.
 
 Under tensor parallelism (``tp``, :mod:`aki_torch.parallel.tensor`) each
 rank attends over its heads with the flash forward in plain mode, as
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import dense_attention, encoder_attention_bf16p
+from ..ops.attention import dense_attention, encoder_attention_bf16p, on_card
 from ..ops.flash_mma import flash_mma_attention
 from ..parallel.tensor import column_parallel, row_parallel
 from .common import (BF16, Policy, empty, init_const, init_norm, init_normal,
@@ -87,7 +90,7 @@ class SiglipEncoderLayer(nn.Module):
             q, k, v = (tp.heads(y).contiguous() for y in (q, k, v))
         # JAX's tower: the flash forward on the rank's heads under tp (that
         # branch comes first), bf16-P attention when serving int8 weights
-        if use_flash and quant and tp is None and x.device.type == "cuda":
+        if use_flash and quant and tp is None and on_card(x):
             o = encoder_attention_bf16p(q, k, v)
         else:
             o = (flash_mma_attention if use_flash else dense_attention)(q, k, v, causal=False)

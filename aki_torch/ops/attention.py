@@ -4,8 +4,11 @@ The plain oracle for the flash kernel and the decode path (one query row):
 softmax(QK^T * scale + mask) V with f32 logits, f32 softmax and the
 probabilities cast to V's dtype before the PV product, as the JAX oracle does.
 Beside it, the bf16-probability attentions of the quantized serving prefill
-(``decoder_attention_bf16p``, ``encoder_attention_bf16p``), plain torch as
-their JAX counterparts are plain XLA.
+(``decoder_attention_bf16p``, ``encoder_attention_bf16p``; JAX runs them as
+plain XLA): on bf16 CUDA tensors they launch the CUDA C++ kernel of
+:mod:`aki_torch.ops.flash_bf16p`, with the same numerics; on CPU tensors
+(and on f32 ones, whose f32 products the kernel's bf16 ones would not
+reproduce) they run the plain torch ``_bf16p_attention``, their oracle.
 """
 
 from __future__ import annotations
@@ -82,6 +85,17 @@ def dense_attention(
     return out.to(q.dtype)
 
 
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies on a CUDA device: the bf16-P attentions launch
+    their kernel for such tensors, and the vision tower takes that route
+    only there."""
+    return x.device.type == "cuda"
+
+
+def _bf16p_kernel(q: torch.Tensor) -> bool:
+    return on_card(q) and q.dtype == torch.bfloat16
+
+
 def _bf16p_attention(q, k, v, ok, scale):
     """softmax(QK^T * scale) V with the probabilities rounded to bf16 and
     divided, after the PV product, by the f32 sum of the rounded values;
@@ -123,10 +137,15 @@ def decoder_attention_bf16p(
     those of :func:`dense_attention`; f32 scores, ``p = exp(s - max)``
     rounded to bf16, the PV product in f32 divided by the f32 sum of the
     rounded ``p``; rows with no allowed key give 0. (B, T, H, D) in q's
-    dtype."""
+    dtype. bf16 CUDA tensors launch the kernel
+    (:func:`~aki_torch.ops.flash_bf16p.flash_bf16p_attention`)."""
     b, t, _, d = q.shape
     if scale is None:
         scale = d ** -0.5
+    if _bf16p_kernel(q):
+        from .flash_bf16p import flash_bf16p_attention
+
+        return flash_bf16p_attention(q, k, v, spec, kv_valid, q_offset, causal, scale)
     ok = attention_mask(b, t, k.shape[1], q.device, spec, kv_valid, q_offset, causal)
     return _bf16p_attention(q, k, v, ok, scale)
 
@@ -136,7 +155,12 @@ def encoder_attention_bf16p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Full (non-causal, unmasked) attention with bf16 probabilities: the
     counterpart of ``aki_tpu/ops/attention.py:encoder_attention_xla``, the
     vision tower's attention under quantized weights on the card.
-    (B, T, H, D) -> (B, T, H, D)."""
+    (B, T, H, D) -> (B, T, H, D). bf16 CUDA tensors launch the kernel
+    (:func:`~aki_torch.ops.flash_bf16p.flash_bf16p_attention`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if _bf16p_kernel(q):
+        from .flash_bf16p import flash_bf16p_attention
+
+        return flash_bf16p_attention(q, k, v, causal=False, scale=scale)
     return _bf16p_attention(q, k, v, None, scale)

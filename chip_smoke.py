@@ -77,15 +77,19 @@ Phases, each fatal on failure:
  11. int8 generation: aki_4b() at full width and depth quantized W8A8
      (tower included) with the int8 KV cache, its prefill logits against
      the bf16 and f32 runs of the same weights, and 32 greedy tokens for the
-     two phase-4 requests, with the launches of each call;
+     two phase-4 requests, with the launches of each call (59 of the
+     bf16-P attention kernel, flash_bf16p, a prefill);
  12. the serving engine as the JAX package's bench.py configures it (48
      slots, max_len 704, bucket 512, batched admission of 48, decode chunks
      of 8, W8A8, int8 KV, uint8 images, tail compaction, uploads of 16)
      draining 96 requests under torch.profiler, with the decode and fused
      quantize kernels' device ms and their launches seen of those issued,
      the tokens of the first 8 held to the one-shot path (teacher-forced);
-     the bf16-probability prefill attentions timed against the flash kernel
-     at the serving prefill shapes;
+     the bf16-P attention kernel (flash_bf16p) held to the plain route it
+     replaces and to f32 attention at the serving prefill shapes (timed
+     beside both and beside the flash kernel), at the one-request
+     prefills and on the mask's edges, its launch plan held to the mirror
+     flash_bf16p.bf16p_plan;
  13. the two kernels no path of the package runs, through their wrappers at
      AKI-4B widths: the flat padded-head forward (K6) at the serving
      admission (48 rows of 655 decoder tokens, 32 heads x 128, MMA, ragged),
@@ -292,7 +296,8 @@ SERVE_RAGGED = [1, 63, 64, 65, 255, 511, 655, 704] * (SERVE_SLOTS // 8)
 PORT_KERNEL_COUNTERS = {"flash_mma_fwd": ("fwd",), "flash_mma_dq": ("dq",),
                         "flash_mma_dkv": ("dkv",),
                         "fused_quant_kernel": ("rms", "ln", "silu", "gelu"),
-                        "decode_attention_kernel": ("decode",)}
+                        "decode_attention_kernel": ("decode",),
+                        "flash_bf16p_kernel": ("bf16p",)}
 # Rounds of the device times at phase 13's 48-row shapes (median kept, each
 # round recorded): one round moved by up to 30% between runs
 SPREAD_ROUNDS = 5
@@ -318,7 +323,7 @@ LONG_SLOTS, LONG_REQUESTS, LONG_BUDGETS, LONG_MAX_LEN, LONG_CHECKS = 8, 24, (128
 LONG_PROFILED_TICKS = 4   # the drain's first dispatches, under torch.profiler
 F32_DECODE_TOKENS = 8
 KERNEL_SOURCES = ("flash_mma_fwd", "flash_mma_bwd", "fused_quant", "decode_attention",
-                  "flash_mma_q8")
+                  "flash_mma_q8", "flash_bf16p")
 TRAIN_TEXT = 512          # text tokens per training row; one <image> -> 144
 # interleaved rows: the pretrain YAML's mmc4 block (max_text_len 256,
 # max_num_images 6): 256 + 6 * 143 = 1,114 spliced tokens
@@ -1510,19 +1515,23 @@ def fused_quant_fns(op):
 
 def int8_launch_counts() -> dict[str, int]:
     from aki_torch.ops.decode_attention import decode_attention_flat
+    from aki_torch.ops.flash_bf16p import flash_bf16p_attention
     from aki_torch.ops.flash_mma import flash_mma_attention
 
     return {**{op: fused_quant_fns(op)[0].launches for op in FUSED_QUANT_REPLACES},
-            "decode": decode_attention_flat.launches, "flash_fwd": flash_mma_attention.launches}
+            "decode": decode_attention_flat.launches, "flash_fwd": flash_mma_attention.launches,
+            "bf16p": flash_bf16p_attention.launches}
 
 
 def zero_int8_launch_counts() -> None:
     from aki_torch.ops.decode_attention import decode_attention_flat
+    from aki_torch.ops.flash_bf16p import flash_bf16p_attention
     from aki_torch.ops.flash_mma import flash_mma_attention
 
     for op in FUSED_QUANT_REPLACES:
         fused_quant_fns(op)[0].launches = 0
     decode_attention_flat.launches = flash_mma_attention.launches = 0
+    flash_bf16p_attention.launches = 0
 
 
 def kernel_ms(split: dict, part: str) -> float | None:
@@ -1929,7 +1938,10 @@ def int8_generation(cfg, prompts) -> tuple:
     log(f"int8 model: quantized in {time.perf_counter() - t0:.1f} s (with the bf16 and f32 "
         f"reference prefills); memory_allocated_gb={torch.cuda.memory_allocated() / 1e9:.3f}")
     n_tower, n_dec = cfg.siglip.num_layers, cfg.phi3.num_layers
-    per_prefill = {"ln": 2 * n_tower, "gelu": n_tower, "rms": 2 * n_dec, "silu": n_dec}
+    # K5 at its four sites, and the bf16-P attention kernel in every tower
+    # and decoder layer (59 at AKI-4B)
+    per_prefill = {"ln": 2 * n_tower, "gelu": n_tower, "rms": 2 * n_dec, "silu": n_dec,
+                   "bf16p": n_tower + n_dec}
 
     zero_int8_launch_counts()
     int8_logits = prefill(model, *args, kv_int8=True).last_logits
@@ -2022,40 +2034,128 @@ def serving_prompts(cfg, n: int) -> list[tuple]:
     return out
 
 
-def prefill_attention_times(cfg, gen) -> dict:
-    """The bf16-probability attentions of the int8 prefill against the flash
-    kernel at the serving prefill shapes (48 rows of 655 decoder tokens under
-    an MMA block, 48 images of 729 patches)."""
-    from aki_torch.ops.attention import decoder_attention_bf16p, encoder_attention_bf16p
-    from aki_torch.ops.flash_mma import flash_mma_attention
-    from aki_torch.ops.masks import MMASpec
+def bf16p_case(name, b, t, s, h, hkv, d, gen, causal=True, rects=None, kv_valid=None,
+               q_offset=0, zero_rows=None, fused=False, spread=False, timed=False) -> dict:
+    """The bf16-P attention kernel (``flash_bf16p_attention``) against the
+    plain route (``_bf16p_attention``, the f32 passes it replaces) on the
+    same bf16 tensors: element-wise (ATOL, RTOL: both round p to bf16, the
+    kernel after exp2, the plain version after exp, and both round the
+    output) and against f32 attention on those tensors (mean |error| within
+    F32_ERR_RATIO of the plain route's). One launch per call, its plan held
+    to the mirror ``bf16p_plan``; ``zero_rows`` (batch row, query rows) must
+    be exactly 0. ``fused``: q, k, v are views into one (B, T, 3*H*D)
+    tensor, as the tower's fused projection gives them;
+    ``spread``: q and k from spread_qk (scores past exp2's flush). ``timed``
+    adds the kernel's device ms (mean over 20 calls, profiler), the call's
+    ms (CUDA events), the plain route's and K1's on the same tensors, and
+    the bound."""
+    from aki_torch.ops.attention import _bf16p_attention, attention_mask
+    from aki_torch.ops.flash_bf16p import bf16p_plan, flash_bf16p_attention, kernel_plan
+    from aki_torch.ops.flash_mma import flash_mma_attention, flash_mma_attention_reference
 
-    ph, sg, dev = cfg.phi3, cfg.siglip, "cuda"
+    q, k, v, spec = case_inputs(b, t, s, h, hkv, d, gen, rects)
+    if spread:
+        q, k = spread_qk(q, k, gen)
+    if fused:
+        qkv = torch.cat([x.reshape(b, t, h * d) for x in (q, k, v)], dim=-1)
+        q, k, v = (y.reshape(b, t, h, d) for y in qkv.split(h * d, dim=-1))
+    kw = dict(spec=spec, kv_valid=kv_valid, q_offset=q_offset, causal=causal)
+    ok = (None if not causal and kv_valid is None else
+          attention_mask(b, t, s, "cuda", spec if causal else None, kv_valid, q_offset, causal))
+    plain = lambda: _bf16p_attention(q, k, v, ok, d ** -0.5)  # noqa: E731
+    kernel = lambda: flash_bf16p_attention(q, k, v, **kw)  # noqa: E731
+    n0 = flash_bf16p_attention.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    launched = flash_bf16p_attention.launches - n0
+    want = plain()
+    diff = (got.float() - want.float()).abs()
+    exact = flash_mma_attention_reference(q.float(), k.float(), v.float(), **kw)
+    kernel_vs_f32 = (got.float() - exact).abs().mean().item()
+    plain_vs_f32 = (want.float() - exact).abs().mean().item()
+    plan = kernel_plan(b, t, h)
+    mirror = bf16p_plan(b, t, h, torch.cuda.get_device_properties(0).multi_processor_count)
+    passed = (launched == 1 and plan == mirror and bool(torch.isfinite(got).all())
+              and bool((diff <= ATOL + RTOL * want.float().abs()).all())
+              and kernel_vs_f32 <= F32_ERR_RATIO * plain_vs_f32 + 1e-7)
+    if zero_rows is not None:
+        passed = passed and bool((got[zero_rows[0], zero_rows[1]] == 0).all())
+    rec = dict(name=name, shape=[b, t, s, h, hkv, d], causal=causal, fused=fused,
+               max_abs_err=diff.max().item(), mean_abs_err_vs_f32=kernel_vs_f32,
+               plain_mean_abs_err_vs_f32=plain_vs_f32, launches=launched, plan=plan)
+    log(f"bf16-P kernel {name}: q={tuple(q.shape)} k={tuple(k.shape)} causal={causal} "
+        f"fused={fused} max_abs_err vs plain={rec['max_abs_err']:.6g} (tol |d|<={ATOL}+"
+        f"{RTOL}*|plain|); mean |err| vs f32 attention: kernel {kernel_vs_f32:.4g} plain "
+        f"{plain_vs_f32:.4g} (kernel <= {F32_ERR_RATIO}x plain); launches {launched}; plan "
+        f"{plan} (mirror {mirror}) {'ok' if passed else 'FAILED'}")
+    if not passed:
+        raise SystemExit(f"chip_smoke: the bf16-P kernel {name} disagrees with the plain route")
+    if spread:
+        rec["exp2_flush_band_terms"] = ftz_band_terms(q, k, kw)
+    if timed:
+        allowed = case_allowed(b, t, s, spec, kv_valid, causal, q_offset)
+        bound_ms, bound_by = bound(allowed_work(b, t, s, h, hkv, d, allowed,
+                                                kv_valid is not None))
+        flash = lambda: flash_mma_attention(  # noqa: E731
+            *(x.contiguous() for x in (q, k, v)), **kw)
+        rec.update(device_ms=device_ms(kernel, "flash_bf16p_kernel"),
+                   seen_of=profiler_shortfall("flash_bf16p_kernel"),
+                   ms=cuda_ms(kernel), burst_ms=burst_ms(kernel),
+                   bf16p_ms=cuda_ms(plain, reps=5), bf16p_device_ms=device_ms(plain, reps=3),
+                   flash_device_ms=device_ms(flash, "flash_mma_fwd_kernel"),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(f"  bf16-P kernel {name}: " + " ".join(
+            f"{key}={rec[key]}" for key in ("device_ms", "seen_of", "ms", "burst_ms", "bf16p_ms",
+                                            "bf16p_device_ms", "flash_device_ms", "bound_ms",
+                                            "bound_by")))
+    return rec
+
+
+def prefill_attention_times(cfg, gen) -> dict:
+    """The bf16-probability attention of the int8 prefill: its kernel
+    (bf16p_case) at the serving prefill shapes (48 rows of 655 decoder
+    tokens under an MMA block with ragged rows, 48 images of 729 patches
+    read from the fused q|k|v product), timed beside the plain route it
+    replaces and the flash kernel K1 on the same tensors, then at the
+    one-request prefills and the mask's edges."""
+    ph, sg = cfg.phi3, cfg.siglip
     n_vis = cfg.perceiver.num_latents
     b, t = SERVE_SLOTS, SERVE_BUCKET + n_vis - 1
-    out = {}
-    q, k, v = (torch.randn(b, t, ph.num_heads, ph.head_dim, device=dev,
-                           generator=gen).to(torch.bfloat16) for _ in range(3))
+    dec = (ph.num_heads, ph.num_heads, ph.head_dim)
+    tower = (sg.num_patches, sg.num_patches, sg.num_heads, sg.num_heads, sg.head_dim)
     # <image> at 1, <|assistant|> at 40: the rectangle bench.py's prompts give
-    spec = MMASpec(*(torch.full((b,), x, dtype=torch.int32, device=dev)
-                     for x in (1, 1 + n_vis, 41 + n_vis - 1)))
-    valid = torch.ones((b, t), dtype=torch.int32, device=dev)
-    kw = dict(spec=spec, kv_valid=valid)
-    out["decoder"] = dict(shape=[b, t, t, ph.num_heads, ph.head_dim],
-                          bf16p_ms=cuda_ms(lambda: decoder_attention_bf16p(q, k, v, **kw), reps=5),
-                          flash_ms=cuda_ms(lambda: flash_mma_attention(q, k, v, **kw), reps=5))
-    del q, k, v
+    serve_rect = [(1, 1 + n_vis, 40 + n_vis)]
+    # the drain's ragged lengths; the last row's first 9 keys invalid: its
+    # query row 0 has no allowed key, rows 1-8 only the image's text keys
+    lens = serving_lengths(cfg)
+    valid = prefix_valid(lens, t)
+    valid[-1, :9] = 0
+    out = {"decoder": bf16p_case("decoder_serving", b, t, t, *dec, gen, rects=serve_rect,
+                                 kv_valid=valid, zero_rows=(b - 1, slice(0, 1)), timed=True)}
     free_cuda()
-    t = sg.num_patches
-    q, k, v = (torch.randn(b, t, sg.num_heads, sg.head_dim, device=dev,
-                           generator=gen).to(torch.bfloat16) for _ in range(3))
-    out["tower"] = dict(shape=[b, t, t, sg.num_heads, sg.head_dim],
-                        bf16p_ms=cuda_ms(lambda: encoder_attention_bf16p(q, k, v), reps=5),
-                        flash_ms=cuda_ms(lambda: flash_mma_attention(q, k, v, causal=False),
-                                         reps=5))
-    del q, k, v
+    out["tower"] = bf16p_case("tower_serving", b, *tower, gen, causal=False, fused=True,
+                              timed=True)
     free_cuda()
-    log(f"prefill attention at the serving shapes, bf16 probabilities vs the flash kernel: {out}")
+    out["edges"] = [
+        bf16p_case("request_a", 1, 203, 203, *dec, gen, rects=[(1, 145, 185)], timed=True),
+        bf16p_case("request_b_cache", 1, 1043, 1280, *dec, gen, rects=[(1, 145, 185)],
+                   kv_valid=prefix_valid([1043], 1280)),
+        bf16p_case("tower_one_image", 1, *tower, gen, causal=False, fused=True, timed=True),
+        bf16p_case("gqa_hkv8", 2, 150, 150, ph.num_heads, 8, ph.head_dim, gen,
+                   rects=[(1, 20, 45)]),
+        bf16p_case("t_37_d80", 2, 37, 37, 2, 2, 80, gen, rects=[(2, 10, 30)]),
+        bf16p_case("dead_rows_d88", 2, 150, 150, 4, 4, 88, gen, kv_valid=prefix_valid(
+            [150, 0], 150), zero_rows=(1, slice(None))),
+        bf16p_case("images16_qoffset_hole_d72", 2, 201, 389, 3, 3, 72, gen, rects=EDGE_RECTS_16,
+                   q_offset=torch.tensor([100, 188], device="cuda"),
+                   kv_valid=holed_valid([301, 389], 389, [[20], [70, 200]])),
+        bf16p_case("big_grid_edges", 12, 300, 389, *dec, gen, rects=EDGE_RECTS_2, q_offset=89,
+                   kv_valid=holed_valid([389] * 6 + [300] * 6, 389, [[64]] * 12)),
+        bf16p_case("tower_hole_d72", 2, *tower, gen, causal=False,
+                   kv_valid=holed_valid([729, 700], 729, [[130], []])),
+        bf16p_case("spread_exp2_flush", 2, 300, 300, 4, 4, ph.head_dim, gen, spread=True),
+    ]
+    free_cuda()
     return out
 
 
@@ -2162,7 +2262,7 @@ def serve_drain(cfg, model) -> dict:
         want = {"ln": 2 * cfg.siglip.num_layers * n_prefill,
                 "gelu": cfg.siglip.num_layers * n_prefill, "rms": 2 * n_dec * n_prefill,
                 "silu": n_dec * n_prefill, "decode": n_dec * 8 * eng.decode_dispatches,
-                "flash_fwd": 0}
+                "flash_fwd": 0, "bf16p": (cfg.siglip.num_layers + n_dec) * n_prefill}
         n_tokens = sum(m for _, _, m in traffic)
         share = lambda name: sum(v_ for k_, v_ in busy.items() if name in k_)  # noqa: E731
         n_seen = lambda name: sum(v_ for k_, v_ in seen.items() if name in k_)  # noqa: E731
@@ -3952,7 +4052,7 @@ def tensor_parallel_one_card(cfg, batches, train, prompts, card: str) -> dict:
         drift = logit_drift(logits, route_p11)
         n_tower, n_dec = cfg.siglip.num_layers, cfg.phi3.num_layers
         want_prefill = {"ln": 2 * n_tower, "gelu": n_tower, "rms": 2 * n_dec, "silu": n_dec,
-                        "decode": 0, "flash_fwd": n_tower + n_dec}
+                        "decode": 0, "flash_fwd": n_tower + n_dec, "bf16p": 0}
         zero_int8_launch_counts()
         tokens, num = generate(model, *args[:3], NEW_TOKENS, a["max_len"], kv_int8=True)
         torch.cuda.synchronize()
@@ -4171,6 +4271,7 @@ def int4_and_f32_serving(cfg, prompts, card: str) -> dict:
     t_phase = time.perf_counter()
     n_tower, n_dec = cfg.siglip.num_layers, cfg.phi3.num_layers
     per_prefill = {"ln": 2 * n_tower, "gelu": n_tower, "rms": 2 * n_dec, "silu": n_dec}
+    bf16p = {"bf16p": n_tower + n_dec}   # the bf16-P attention kernel, bf16 activations only
     a = prompts[0]
     args = (a["ids"], a["image"], a["valid"], a["max_len"])
 
@@ -4225,7 +4326,7 @@ def int4_and_f32_serving(cfg, prompts, card: str) -> dict:
     w4_toks, _ = gen_tokens(NEW_TOKENS)
     set_a8(model, True)
     equal = sum(x == y for x, y in zip(w4_toks[0].tolist(), fake_toks[0].tolist()))
-    want_gen = {**per_prefill, "decode": n_dec * NEW_TOKENS, "flash_fwd": 0}
+    want_gen = {**per_prefill, "decode": n_dec * NEW_TOKENS, "flash_fwd": 0, **bf16p}
     rec["w4a8"] = dict(prefill_launches=counts, generate_launches=gen_counts,
                        drift_vs_fake_quant=d_fake, drift_vs_float=d_float,
                        argmax_equal_fake=bool(w4a8_logits.argmax() == fake_logits.argmax()),
@@ -4233,7 +4334,7 @@ def int4_and_f32_serving(cfg, prompts, card: str) -> dict:
     rec["w4"] = dict(tokens=w4_toks[0].tolist(), fake_quant_tokens=fake_toks[0].tolist(),
                      equal=equal, of=NEW_TOKENS)
     log(f"phase 19 w4a8 + int8 KV (request a): prefill launches {counts} (want "
-        f"{per_prefill}, no K4, no K1), generate launches {gen_counts} (want {want_gen}); "
+        f"{per_prefill}, {bf16p}, no K4, no K1), generate launches {gen_counts} (want {want_gen}); "
         f"prefill logits drift mean/max vs the fake-quant bf16 model {d_fake} (gate < "
         f"{DRIFT_MEAN_MAX} / {DRIFT_MAX_MAX}), vs the float bf16 model {d_float} (printed)")
     log(f"phase 19 w4 weight-only: {equal} of {NEW_TOKENS} tokens equal to the fake-quant "
@@ -4244,7 +4345,7 @@ def int4_and_f32_serving(cfg, prompts, card: str) -> dict:
         raise SystemExit("chip_smoke: phase 19: w4a8 prefill logits drift past the gate from "
                          "the fake-quant model")
     if {op: counts[op] for op in per_prefill} != per_prefill or counts["decode"] or \
-            counts["flash_fwd"] or gen_counts != want_gen:
+            counts["flash_fwd"] or counts["bf16p"] != bf16p["bf16p"] or gen_counts != want_gen:
         raise SystemExit(f"chip_smoke: phase 19 w4a8 launches {counts} / {gen_counts}")
     del float_logits, w4a8_logits, fake_logits
 
@@ -4269,7 +4370,8 @@ def int4_and_f32_serving(cfg, prompts, card: str) -> dict:
     f32_toks, f32_num = gen_tokens(F32_DECODE_TOKENS, policy=F32)
     f32_gen = int8_launch_counts()
     d_f32 = logit_drift(q_logits, f32_logits)
-    want_f32 = {**per_prefill, "decode": n_dec * F32_DECODE_TOKENS, "flash_fwd": 0}
+    # f32 activations keep the plain bf16-P route: no kernel takes f32 q, k, v
+    want_f32 = {**per_prefill, "decode": n_dec * F32_DECODE_TOKENS, "flash_fwd": 0, "bf16p": 0}
     rec["f32_w8a8"] = dict(prefill_launches=f32_counts, generate_launches=f32_gen,
                            logits_dtype=str(q_logits.dtype), drift_vs_f32=d_f32,
                            tokens=f32_toks[0].tolist())
@@ -4282,7 +4384,7 @@ def int4_and_f32_serving(cfg, prompts, card: str) -> dict:
     if d_f32[0] >= DRIFT_MEAN_MAX or d_f32[1] >= DRIFT_MAX_MAX:
         raise SystemExit("chip_smoke: phase 19: F32 int8 prefill logits drift past the gate")
     if {op: f32_counts[op] for op in per_prefill} != per_prefill or f32_counts["decode"] or \
-            f32_counts["flash_fwd"] or f32_gen != want_f32:
+            f32_counts["flash_fwd"] or f32_counts["bf16p"] or f32_gen != want_f32:
         raise SystemExit(f"chip_smoke: phase 19 F32 launches {f32_counts} / {f32_gen}")
     if int(f32_num[0]) != F32_DECODE_TOKENS or not all(
             0 <= x < cfg.output_vocab for x in rec["f32_w8a8"]["tokens"]):

@@ -38,8 +38,8 @@ def test_new_header_changes_path(csrc):
 
 
 def test_real_sources_share_the_hopper_header():
-    """The three flash kernels include the shared header that the hash covers."""
-    for name in ("flash_mma_fwd", "flash_mma_bwd", "flash_mma_q8"):
+    """The four flash kernels include the shared header that the hash covers."""
+    for name in ("flash_mma_fwd", "flash_mma_bwd", "flash_mma_q8", "flash_bf16p"):
         assert '#include "hopper.cuh"' in (cuda_build.CSRC / f"{name}.cu").read_text()
     assert (cuda_build.CSRC / "hopper.cuh").exists()
 
